@@ -12,10 +12,19 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                per source, all started together; seconds and the
                ``-Xptxas -v`` register / shared-memory lines.
   3. kernels — each kernel's wrapper against its plain PyTorch version on
-               the card, at qwen2-1.5b's shapes (paged attention: every
-               element within a bf16 tolerance; run copies: byte-equal),
-               and CUDA-event times of the kernel, the plain version and
-               one PyTorch library call computing the same function.
+               the card, and CUDA-event times of the kernel, the plain
+               version and one PyTorch library call computing the same
+               function (where one exists).  Shapes: qwen2-1.5b's decode
+               attention and one 64-block swap chunk (gather, scatter, and
+               the same chunk as per-block pairs and as grouped 2-D runs:
+               byte-equal); its prefill attention, B 1 x T 2048 and
+               B 8 x T 512 (flash, every element within a bf16 tolerance);
+               zamba2-7b's SSD scan, 112 heads x T 4096 (y and S within
+               stated bounds).
+  3b. ops    — the kernels this slice adds, driven once each through the
+               public API ``repro_torch.kernels.ops`` at those widths, with
+               their launch counts set to 0 just before and read just
+               after; no serving-path module calls them.
   4. engine  — qwen2-1.5b at full width (random weights from a seed) served
                by ``ServingEngine`` in real mode with the fastswitch policy
                and a KV pool small enough to force preemption; every turn
@@ -30,8 +39,8 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                ``torch.profiler``; the device's idle share of its wall time
                and its operations by device time.
 
-Then a ``kernels`` line (launches on the main path, error and times per
-kernel) and, as the last line, ``{"ok": true, "device": {...}}``.  Any
+Then a ``kernels`` line (per kernel: launches on its path, error, times
+and bound) and, as the last line, ``{"ok": true, "device": {...}}``.  Any
 failure raises: the exit code is then not 0 and the last line is not
 printed.  Imports nothing of JAX or of the JAX package.
 """
@@ -57,6 +66,13 @@ SEED = 0
 # 64-token tile (a change of several percent there) fails.  Held per
 # element as |out - ref| <= ATTN_ATOL + ATTN_RTOL * |ref|.
 ATTN_ATOL, ATTN_RTOL = 1e-3, 2 ** -7
+# the SSD scan's bf16 y: one bf16 ulp as above (ATTN_RTOL) over fp32 sums
+# in other orders, with a floor for values near 0 (measured on an H100 at
+# zamba2-7b's shapes: max abs error 0.03125, one ulp at |y| in [4, 8)); its
+# fp32 state S: the sums' rounding only (measured max abs error 3.5e-6;
+# the bound is ~6x that)
+GLA_Y_ATOL = 1e-4
+GLA_S_ATOL, GLA_S_RTOL = 2e-5, 1e-5
 # a greedy token the dense forward disagrees with is accepted only where
 # the dense forward's logit for it is this close to its own maximum: bf16
 # activations through 28 layers round at other places in the paged path
@@ -151,7 +167,7 @@ def attention_work(case):
     return nbytes, flops
 
 
-def attention_error(out, ref) -> float:
+def attention_error(out, ref, what: str = "paged_attention") -> float:
     """Max abs error of ``out`` against ``ref``; raises where an element
     is off by more than ATTN_ATOL + ATTN_RTOL * |ref|."""
     out, ref = out.float(), ref.float()
@@ -159,7 +175,7 @@ def attention_error(out, ref) -> float:
     excess = float((diff - ATTN_RTOL * ref.abs()).max())
     err = float(diff.max())
     if not (math.isfinite(err) and excess <= ATTN_ATOL):
-        raise AssertionError(f"paged_attention: max abs error {err}, an "
+        raise AssertionError(f"{what}: max abs error {err}, an "
                              f"element {excess} above {ATTN_RTOL} * |ref| "
                              f"(allowed {ATTN_ATOL})")
     return err
@@ -215,7 +231,8 @@ def copy_case(device, seed: int, nb=512, runs=((3, 20), (40, 12), (100, 32)),
 
 def check_copies(case):
     """Gather and scatter through the kernels and the plain version:
-    byte-equal, and the scatter leaves unnamed blocks alone."""
+    byte-equal, and the scatter leaves unnamed blocks alone.  Returns the
+    gathered slab and the scatter's destination runs."""
     import torch
     from repro_torch.kernels import block_copy as bc
     from repro_torch.kernels import ops
@@ -246,7 +263,9 @@ def check_copies(case):
     if not torch.equal(pool2.view(torch.int16),
                        ref2.view(pool.shape).view(torch.int16)):
         raise AssertionError("block_scatter_runs: pool differs from plain")
-    return total, dst_runs
+    if total != sum(n for _, n in runs):
+        raise AssertionError(f"block_gather_runs: {total} blocks gathered")
+    return slab, dst_runs
 
 
 def time_copies(case, dst_runs, flush):
@@ -291,6 +310,248 @@ def time_copies(case, dst_runs, flush):
     row_bytes = bs * H * D * pool.element_size()
     nbytes = 2 * n * L * K * row_bytes        # each block read and written
     return gather, scatter, nbytes
+
+
+# ---------------------------------------------------------------------------
+# phase 3, the ops API's other kernels: per-block and grouped copies of the
+# same swap chunk, flash attention, the SSD scan
+# ---------------------------------------------------------------------------
+
+
+def copy_2d_case(case):
+    """The swap chunk of ``copy_case`` as 2-D copies over the pool's
+    (C * nb, E) view into a slab-shaped (C * n_slab, E) destination (the
+    gather's slab layout): per-block index pairs ``si`` -> ``di`` (C * 64
+    = 3,584) and grouped runs ``g_src`` / ``g_dst`` / ``g_len`` (C * 3 =
+    168, one per run and plane; also as ``run_list`` and ``dst_starts``
+    for ``ops.copy_block_runs``)."""
+    import torch
+    from repro_torch.kernels import ops
+    pool, runs = case["pool"], case["runs"]
+    L, K, nb, bs, H, D = pool.shape
+    C, E = L * K, bs * H * D
+    _, offsets, _, _, n_slab, _ = ops._pad_runs(runs)
+    si, di, g_src, g_dst, g_len = [], [], [], [], []
+    for c in range(C):
+        for (s, n), o in zip(runs, offsets.tolist()):
+            si.extend(c * nb + s + j for j in range(n))
+            di.extend(c * n_slab + o + j for j in range(n))
+            g_src.append(c * nb + s)
+            g_dst.append(c * n_slab + o)
+            g_len.append(n)
+    dev = pool.device
+    as_dev = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)
+    return dict(src=pool.view(C * nb, E), n_dst=C * n_slab, E=E,
+                si=as_dev(si), di=as_dev(di), g_src=as_dev(g_src),
+                g_dst=as_dev(g_dst), g_len=as_dev(g_len),
+                run_list=[(s, n) for s, n in zip(g_src, g_len)],
+                dst_starts=g_dst, run_blocks=max(g_len))
+
+
+def check_block_copies(c2, slab):
+    """Per-block and grouped copies through the kernels and the plain
+    versions: byte-equal with each other and with the gather's slab.
+    Returns the kernels' outputs."""
+    import torch
+    from repro_torch.kernels import block_copy as bc
+    src, dev = c2["src"], c2["src"].device
+    fresh = lambda: torch.zeros((c2["n_dst"], c2["E"]), dtype=src.dtype,
+                                device=dev)
+    want = slab.reshape(c2["n_dst"], c2["E"]).view(torch.int16)
+    outs = {}
+    for name, kernel, plain, args in (
+            ("block_copy", bc.block_copy, bc.block_copy_plain,
+             (c2["si"], c2["di"])),
+            ("block_copy_grouped", bc.block_copy_grouped,
+             bc.block_copy_grouped_plain,
+             (c2["g_src"], c2["g_dst"], c2["g_len"], c2["run_blocks"]))):
+        out = kernel(src, fresh(), *args)
+        ref = plain(src, fresh(), *args)
+        torch.cuda.synchronize()
+        if not torch.equal(out.view(torch.int16), ref.view(torch.int16)):
+            raise AssertionError(f"{name}: differs from its plain version")
+        if not torch.equal(out.view(torch.int16), want):
+            raise AssertionError(f"{name}: differs from the gather's slab")
+        outs[name] = out
+    return outs
+
+
+def time_block_copies(c2, flush):
+    """(kernel, plain, library) ms of both copies and the bytes each
+    must move: every named block read and written once, its index lists
+    read.  Library: ``index_copy_`` of an ``index_select``, the indices
+    built on the device beforehand."""
+    import torch
+    from repro_torch.kernels import block_copy as bc
+    src = c2["src"]
+    dst = torch.zeros((c2["n_dst"], c2["E"]), dtype=src.dtype,
+                      device=src.device)
+    si, di = c2["si"].long(), c2["di"].long()
+    library = lambda: dst.index_copy_(0, di, src.index_select(0, si))
+    moved = 2 * c2["si"].numel() * c2["E"] * src.element_size()
+    g = (c2["g_src"], c2["g_dst"], c2["g_len"], c2["run_blocks"])
+    per_block = (
+        time_ms(lambda: bc.block_copy(src, dst, c2["si"], c2["di"]),
+                flush=flush),
+        time_ms(lambda: bc.block_copy_plain(src, dst, c2["si"], c2["di"]),
+                iters=5, flush=flush),
+        time_ms(library, flush=flush))
+    grouped = (
+        time_ms(lambda: bc.block_copy_grouped(src, dst, *g), flush=flush),
+        time_ms(lambda: bc.block_copy_grouped_plain(src, dst, *g), iters=5,
+                flush=flush),
+        time_ms(library, flush=flush))
+    return {"block_copy": (per_block, moved + 2 * 4 * c2["si"].numel()),
+            "block_copy_grouped": (grouped,
+                                   moved + 3 * 4 * c2["g_src"].numel())}
+
+
+def flash_case(B: int, H: int, T: int, D: int, device, seed: int):
+    """Causal prefill attention inputs at qwen2-1.5b's head shape (12
+    query heads, the 2 KV heads pre-expanded), bf16 N(0, 1)."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn((B, H, T, D), generator=g, device=device).bfloat16()
+            for _ in range(3)]
+
+
+def flash_work(B: int, H: int, T: int, S: int, D: int, causal: bool,
+               elem: int = 2):
+    """(bytes, flops) of attention for these shapes: q, k, v read and the
+    output written once; QK^T and PV over the visible (row, key) pairs
+    only (key col visible to row when col <= row), 2 flops per MAC."""
+    pairs = (sum(min(r + 1, S) for r in range(T)) if causal else T * S)
+    nbytes = (2 * B * H * T * D + 2 * B * H * S * D) * elem
+    return nbytes, 4 * B * H * D * pairs
+
+
+def check_flash(qkv) -> tuple:
+    """(kernel output, max abs error against the plain version), every
+    element within ATTN_ATOL + ATTN_RTOL * |ref|."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    out = fa.flash_attention(*qkv, causal=True)
+    ref = fa.flash_attention_plain(*qkv, causal=True)
+    torch.cuda.synchronize()
+    return out, attention_error(out, ref, "flash_attention")
+
+
+def time_flash(qkv, flush):
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    return (time_ms(lambda: fa.flash_attention(*qkv, causal=True),
+                    flush=flush),
+            time_ms(lambda: fa.flash_attention_plain(*qkv, causal=True),
+                    iters=5, flush=flush),
+            time_ms(lambda: F.scaled_dot_product_attention(*qkv,
+                                                           is_causal=True),
+                    flush=flush))
+
+
+def gla_case(device, seed: int, B=1, H=112, T=4096, N=64, P=64):
+    """zamba2-7b's SSD scan (d_inner 7168 = 112 heads of P 64, state N 64,
+    chunk 64) over T 4096: bf16 q, k, v drawn N(0, 0.25) as
+    tests/test_kernels.py draws them, logw = -exp(N(0, 0.5) - 1)."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = (torch.randn((B, H, T, N), generator=g, device=device) * 0.5)
+    k = (torch.randn((B, H, T, N), generator=g, device=device) * 0.5)
+    v = (torch.randn((B, H, T, P), generator=g, device=device) * 0.5)
+    logw = -torch.exp(torch.randn((B, H, T), generator=g, device=device)
+                      * 0.5 - 1.0)
+    return [q.bfloat16(), k.bfloat16(), v.bfloat16(), logw]
+
+
+def gla_work(B: int, H: int, T: int, N: int, P: int, chunk: int,
+             elem: int = 2):
+    """(bytes, flops) of the chunked scan: q, k, v (``elem`` bytes) and
+    logw (fp32) read once, y (``elem``) and the fp32 state written once;
+    per chunk q @ S, q k^T and A @ v over the causal (i, j <= i) pairs
+    only, and the state update, 2 flops per MAC."""
+    nbytes = (B * H * T * (2 * N + 2 * P) * elem + B * H * T * 4
+              + B * H * N * P * 4)
+    tri = chunk * (chunk + 1) // 2
+    macs = (T // chunk) * (2 * chunk * N * P + tri * (N + P))
+    return nbytes, 2 * B * H * macs
+
+
+def gla_errors(y, s, want_y, want_s) -> tuple:
+    """Max abs errors of y and S; raises where an element of y is off by
+    more than GLA_Y_ATOL + ATTN_RTOL * |ref| or of S by more than
+    GLA_S_ATOL + GLA_S_RTOL * |ref|."""
+    errs = []
+    for what, out, ref, atol, rtol in (
+            ("y", y, want_y, GLA_Y_ATOL, ATTN_RTOL),
+            ("S", s, want_s, GLA_S_ATOL, GLA_S_RTOL)):
+        out, ref = out.float(), ref.float()
+        diff = (out - ref).abs()
+        excess = float((diff - rtol * ref.abs()).max())
+        err = float(diff.max())
+        if not (math.isfinite(err) and excess <= atol):
+            raise AssertionError(f"gla_scan_scalar: {what} max abs error "
+                                 f"{err}, an element {excess} above {rtol} "
+                                 f"* |ref| (allowed {atol})")
+        errs.append(err)
+    return tuple(errs)
+
+
+def check_gla(case) -> tuple:
+    """((y, S) of the kernel, (y error, S error)) against the plain
+    version."""
+    import torch
+    from repro_torch.kernels import gla_scan as gla
+    y, s = gla.gla_scan_scalar(*case, chunk=64)
+    want_y, want_s = gla.gla_scan_scalar_plain(*case, chunk=64)
+    torch.cuda.synchronize()
+    return (y, s), gla_errors(y, s, want_y, want_s)
+
+
+def time_gla(case, flush):
+    from repro_torch.kernels import gla_scan as gla
+    return (time_ms(lambda: gla.gla_scan_scalar(*case, chunk=64),
+                    flush=flush),
+            time_ms(lambda: gla.gla_scan_scalar_plain(*case, chunk=64),
+                    iters=5, flush=flush),
+            None)
+
+
+def run_ops_path(c2, qkv, gla_in, outs):
+    """This slice's path: the public kernel API ``repro_torch.kernels.ops``
+    once per kernel at the full widths above, the launch counts set to 0
+    just before and read just after.  Outputs must equal the checked
+    kernel outputs ``outs`` bit for bit (the kernels are deterministic)."""
+    import torch
+    from repro_torch.kernels import block_copy as bc
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gla_scan as gla
+    from repro_torch.kernels import ops
+    counted = (bc.block_copy, bc.block_copy_grouped, fa.flash_attention,
+               gla.gla_scan_scalar)
+    src = c2["src"]
+    fresh = lambda: torch.zeros((c2["n_dst"], c2["E"]), dtype=src.dtype,
+                                device=src.device)
+    dst_pb, dst_g = fresh(), fresh()
+    for fn in counted:
+        fn.launches = 0
+    got = {"block_copy": ops.copy_blocks(src, dst_pb, c2["si"], c2["di"]),
+           "block_copy_grouped": ops.copy_block_runs(
+               src, dst_g, c2["run_list"], c2["dst_starts"]),
+           "flash_attention": ops.flash_attention(*qkv, causal=True),
+           "gla_scan_scalar": ops.gla_scan_scalar(*gla_in, chunk=64)}
+    launches = {fn.__name__: fn.launches for fn in counted}
+    torch.cuda.synchronize()
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the ops path never launched: "
+                             f"{launches}")
+    bits = lambda t: t.contiguous().view(torch.uint8)   # NaN bits too
+    for name, out in got.items():
+        outs_n = out if isinstance(out, tuple) else (out,)
+        want = outs[name] if isinstance(outs[name], tuple) else (outs[name],)
+        if not all(torch.equal(bits(a), bits(b))
+                   for a, b in zip(outs_n, want)):
+            raise AssertionError(f"ops path: {name} differs from the "
+                                 "checked kernel output")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -549,17 +810,55 @@ def main() -> int:
     a_ms, a_plain, a_lib = time_attention(timed, flush)
     a_bytes, a_flops = attention_work(timed)
     copies = copy_case(dev, seed=1)
-    _, dst_runs = check_copies(copies)
+    slab, dst_runs = check_copies(copies)
     gather_t, scatter_t, c_bytes = time_copies(copies, dst_runs, flush)
+    c2 = copy_2d_case(copies)
+    outs = check_block_copies(c2, slab)
+    block_t = time_block_copies(c2, flush)
+    flash = {}
+    for B, T_len in ((1, 2048), (8, 512)):
+        qkv = flash_case(B, 12, T_len, 128, dev, seed=B * T_len)
+        out, err = check_flash(qkv)
+        flash[(B, T_len)] = dict(qkv=qkv, out=out, err=err,
+                                 times=time_flash(qkv, flush),
+                                 work=flash_work(B, 12, T_len, T_len, 128,
+                                                 True))
+    gla_in = gla_case(dev, seed=3)
+    gla_out, gla_err = check_gla(gla_in)
+    gla_t = time_gla(gla_in, flush)
     emit("kernels",
          paged_attention={f"B{B}_pages{P}": err
                           for (B, P), (_, err) in attn.items()},
          attention_tolerance={"atol": ATTN_ATOL, "rtol": ATTN_RTOL},
          run_copies="byte-equal",
+         block_copies="byte-equal with their plain versions and the "
+                      "gather's slab",
+         block_copy_pairs=c2["si"].numel(),
+         block_copy_grouped_runs=c2["g_src"].numel(),
+         flash_attention={f"B{B}_T{T_len}": f["err"]
+                          for (B, T_len), f in flash.items()},
+         gla_scan_scalar={"y": gla_err[0], "S": gla_err[1]},
+         gla_tolerance={"y": {"atol": GLA_Y_ATOL, "rtol": ATTN_RTOL},
+                        "S": {"atol": GLA_S_ATOL, "rtol": GLA_S_RTOL}},
          timed={"paged_attention": [a_ms, a_plain, a_lib],
                 "block_gather_runs": list(gather_t),
-                "block_scatter_runs": list(scatter_t)})
+                "block_scatter_runs": list(scatter_t),
+                **{k: list(t) for k, (t, _) in block_t.items()},
+                **{f"flash_attention_B{B}_T{T_len}": list(f["times"])
+                   for (B, T_len), f in flash.items()},
+                "gla_scan_scalar": list(gla_t)},
+         timed_columns=["kernel_ms", "plain_ms", "library_ms"])
     del flush
+
+    # 3b. this slice's path: the ops API at the same full widths
+    outs.update(flash_attention=flash[(1, 2048)]["out"],
+                gla_scan_scalar=gla_out)
+    ops_launches = run_ops_path(c2, flash[(1, 2048)]["qkv"], gla_in, outs)
+    emit("ops", launches=ops_launches,
+         outputs="bit-equal with the checked kernel outputs")
+    del outs, c2, copies, slab, gla_in, gla_out
+    for f in flash.values():
+        del f["qkv"], f["out"]
 
     # 4. engine
     from repro_torch.configs import get_config
@@ -609,24 +908,46 @@ def main() -> int:
     del bundle, params
 
     # summary
+    serving = "serving (ServingEngine, the main path)"
+    ops_path = ("repro_torch.kernels.ops at full width; no caller on the "
+                "serving path, so no launches there")
+    f_ms, f_plain, f_lib = flash[(1, 2048)]["times"]
     rows = []
-    for kname, (ms, plain, lib), nbytes, flops, err in (
-            ("paged_attention", (a_ms, a_plain, a_lib), a_bytes, a_flops,
-             max(e for _, e in attn.values())),
-            ("block_gather_runs", gather_t, c_bytes, 0, 0.0),
-            ("block_scatter_runs", scatter_t, c_bytes, 0, 0.0)):
-        b_ms, b_by = bound_ms(nbytes, flops)
-        src = ("paged_attention.cu" if kname == "paged_attention"
-               else "block_copy.cu")
+    for (kname, src, replaces, path, times, work, err, launched) in (
+            ("paged_attention", "paged_attention.cu",
+             "src/repro/kernels/paged_attention.py:129", serving,
+             (a_ms, a_plain, a_lib), (a_bytes, a_flops),
+             max(e for _, e in attn.values()), launches),
+            ("block_gather_runs", "block_copy.cu",
+             "src/repro/kernels/block_copy.py:140", serving, gather_t,
+             (c_bytes, 0), 0.0, launches),
+            ("block_scatter_runs", "block_copy.cu",
+             "src/repro/kernels/block_copy.py:140", serving, scatter_t,
+             (c_bytes, 0), 0.0, launches),
+            ("block_copy", "block_copy.cu",
+             "src/repro/kernels/block_copy.py:49", ops_path,
+             block_t["block_copy"][0], (block_t["block_copy"][1], 0), 0.0,
+             ops_launches),
+            ("block_copy_grouped", "block_copy.cu",
+             "src/repro/kernels/block_copy.py:97", ops_path,
+             block_t["block_copy_grouped"][0],
+             (block_t["block_copy_grouped"][1], 0), 0.0, ops_launches),
+            ("flash_attention", "flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:82", ops_path,
+             (f_ms, f_plain, f_lib), flash[(1, 2048)]["work"],
+             max(f["err"] for f in flash.values()), ops_launches),
+            ("gla_scan_scalar", "gla_scan.cu",
+             "src/repro/kernels/gla_scan.py:85", ops_path, gla_t,
+             gla_work(1, 112, 4096, 64, 64, 64), max(gla_err),
+             ops_launches)):
+        b_ms, b_by = bound_ms(*work)
         rows.append({
             "name": kname, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{src}",
-            "replaces": ("src/repro/kernels/paged_attention.py:129"
-                         if kname == "paged_attention"
-                         else "src/repro/kernels/block_copy.py:140"),
-            "launches": launches[kname], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib})
+            "source": f"src/repro_torch/csrc/{src}", "replaces": replaces,
+            "launches": launched[kname], "path": path, "max_abs_err": err,
+            "ms": times[0], "plain_ms": times[1], "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": times[2]})
+    rows[-1]["library"] = "none: no single PyTorch call computes the scan"
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

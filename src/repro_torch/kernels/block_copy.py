@@ -1,20 +1,32 @@
-"""Run-coalesced block copy, the swap data plane: the CUDA kernel's
-wrappers, their plain version, and the run-list helpers.
+"""Block copies over KV pools: the CUDA kernels' wrappers, their plain
+versions, and the run-list helpers.
 
-Counterpart of ``repro/kernels/block_copy.py`` (``_copy_runs_3d``,
-``block_gather_runs``, ``block_scatter_runs``, ``runs_to_indices``,
-``trim_runs``, ``split_runs``).  A run copy moves
-``src[:, s:s+l] -> dst[:, d:d+l]`` for each run over (C, n_blocks, E)
-views of a pool or staging slab, with C = L * 2 (layer, k/v) planes.
-Zero-length runs copy nothing and blocks no run names keep their bytes.
-The copy is in place on ``dst``, which the wrappers also return, so call
-sites read like the reference's "returns the new array" form.
+Counterpart of ``repro/kernels/block_copy.py``:
+
+* the run-coalesced copy of the swap data plane (``_copy_runs_3d``,
+  ``block_gather_runs``, ``block_scatter_runs``): runs
+  ``src[:, s:s+l] -> dst[:, d:d+l]`` over (C, n_blocks, E) views of a pool
+  or staging slab, with C = L * 2 (layer, k/v) planes;
+* ``block_copy``, the per-block copy ``dst[dst_blocks[i]] =
+  src[src_blocks[i]]`` over (nb, E) pools (the vLLM per-block baseline);
+* ``block_copy_grouped``, the same run copy over (nb, E) pools;
+* ``runs_to_indices``, ``trim_runs``, ``split_runs``.
+
+Zero-length runs copy nothing and blocks no step names keep their bytes.
+Every copy is in place on ``dst``, which the wrappers also return, so call
+sites read like the reference's "returns the new array" form.  Block
+indices follow the TPU kernels' index maps: int32 ``start + j``, a
+negative index counts from the end of the pool, then the index is clamped
+into the pool.  ``block_copy`` and ``block_copy_grouped`` also keep the
+sequential TPU grid's result where several steps name one destination
+block: the last step's bytes win.
 
 On CPU tensors the wrappers take the plain version; on CUDA tensors they
 launch ``csrc/block_copy.cu`` or raise.
 """
 from __future__ import annotations
 
+import math
 from typing import List, Tuple
 
 import torch
@@ -33,40 +45,46 @@ def copy_runs_plain(src, dst, src_starts, dst_starts, run_lens):
     return dst
 
 
-def _copy_runs_cuda(src, dst, src_starts, dst_starts, run_lens,
-                    run_blocks: int, what: str) -> None:
-    idx = (src_starts, dst_starts, run_lens)
+def _check_copy_args(src, dst, idx, what: str) -> None:
     if not all(t.is_cuda and t.device == src.device for t in (dst, *idx)):
         raise ValueError(f"{what}: all operands must be on one CUDA device")
     if src.dtype != dst.dtype:
         raise TypeError(f"{what}: src {src.dtype} != dst {dst.dtype}")
     if any(t.dtype != torch.int32 for t in idx):
-        raise TypeError(f"{what}: starts and lens must be int32")
+        raise TypeError(f"{what}: block indices must be int32")
     if not (src.is_contiguous() and dst.is_contiguous()
             and all(t.is_contiguous() for t in idx)):
         raise ValueError(f"{what}: operands must be contiguous")
+    if src.untyped_storage().data_ptr() == dst.untyped_storage().data_ptr():
+        raise ValueError(f"{what}: src and dst share memory; the kernel "
+                         "reads src while it writes dst")
+
+
+def _copy_runs_cuda(src, dst, src_starts, dst_starts, run_lens,
+                    run_blocks: int, what: str, winner=None) -> bool:
+    """Launch the run-copy kernel; False where there is nothing to copy."""
+    idx = (src_starts, dst_starts, run_lens)
+    _check_copy_args(src, dst, idx, what)
     n_runs = src_starts.shape[0]
     if dst_starts.shape != (n_runs,) or run_lens.shape != (n_runs,):
         raise ValueError(f"{what}: starts and lens must be (n_runs,)")
     if src.shape[0] != dst.shape[0] or src.shape[2:] != dst.shape[2:]:
         raise ValueError(f"{what}: src {tuple(src.shape)} and dst "
                          f"{tuple(dst.shape)} differ outside the block axis")
-    C = src.shape[0]
-    row_bytes = src[0, 0].numel() * src.element_size()
-    if row_bytes % 16 or src.data_ptr() % 16 or dst.data_ptr() % 16:
-        raise ValueError(f"{what}: block rows ({row_bytes} B) and base "
-                         "pointers must be 16-byte multiples")
-    if not 0 < run_blocks <= 65535:
+    if not 0 < run_blocks <= 65535 or n_runs * run_blocks >= 2 ** 31:
         raise ValueError(f"{what}: run_blocks {run_blocks} out of range")
-    if n_runs == 0 or src.shape[1] == 0 or dst.shape[1] == 0:
-        return
+    row_bytes = math.prod(src.shape[2:]) * src.element_size()
+    if 0 in (n_runs, src.shape[1], dst.shape[1], row_bytes):
+        return False
     lib = build.library("block_copy")
     code = lib.fs_copy_runs(
         src.data_ptr(), dst.data_ptr(), src_starts.data_ptr(),
-        dst_starts.data_ptr(), run_lens.data_ptr(), n_runs, run_blocks, C,
-        src.shape[1], dst.shape[1], row_bytes,
+        dst_starts.data_ptr(), run_lens.data_ptr(), n_runs, run_blocks,
+        src.shape[0], src.shape[1], dst.shape[1], row_bytes,
+        None if winner is None else winner.data_ptr(),
         torch.cuda.current_stream(src.device).cuda_stream)
     build.check_launch(code, what)
+    return True
 
 
 def block_gather_runs(pool, slab0, src_starts, dst_starts, run_lens,
@@ -80,9 +98,9 @@ def block_gather_runs(pool, slab0, src_starts, dst_starts, run_lens,
     run's length).  Writes ``slab0`` in place and returns it."""
     if not pool.is_cuda:
         return copy_runs_plain(pool, slab0, src_starts, dst_starts, run_lens)
-    _copy_runs_cuda(pool, slab0, src_starts, dst_starts, run_lens,
-                    run_blocks, "block_gather_runs")
-    block_gather_runs.launches += 1
+    if _copy_runs_cuda(pool, slab0, src_starts, dst_starts, run_lens,
+                       run_blocks, "block_gather_runs"):
+        block_gather_runs.launches += 1
     return slab0
 
 
@@ -93,14 +111,121 @@ def block_scatter_runs(slab, pool, src_starts, dst_starts, run_lens,
     swap path).  Writes ``pool`` in place and returns it."""
     if not pool.is_cuda:
         return copy_runs_plain(slab, pool, src_starts, dst_starts, run_lens)
-    _copy_runs_cuda(slab, pool, src_starts, dst_starts, run_lens,
-                    run_blocks, "block_scatter_runs")
-    block_scatter_runs.launches += 1
+    if _copy_runs_cuda(slab, pool, src_starts, dst_starts, run_lens,
+                       run_blocks, "block_scatter_runs"):
+        block_scatter_runs.launches += 1
     return pool
 
 
 block_gather_runs.launches = 0
 block_scatter_runs.launches = 0
+
+
+def _block_index(idx, n: int):
+    """The TPU index map's block for int64 ``idx``: wrapped to int32, a
+    negative index counts from the end, then clamped into [0, n)."""
+    idx = (idx + 2 ** 31) % 2 ** 32 - 2 ** 31
+    return torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
+
+
+def block_copy_plain(src_pool, dst_pool, src_blocks, dst_blocks):
+    """Plain version: ``dst_pool[d_i] = src_pool[s_i]`` with the TPU index
+    rule; where several pairs name one destination block the last pair
+    wins.  src_pool: (nb_src, ...); dst_pool: (nb_dst, ...); indices:
+    (n,) ints.  Writes ``dst_pool`` in place and returns it."""
+    n = src_blocks.shape[0]
+    if n == 0 or src_pool.shape[0] == 0 or dst_pool.shape[0] == 0:
+        return dst_pool
+    dev = dst_pool.device
+    si = _block_index(src_blocks.to(dev, torch.int64), src_pool.shape[0])
+    di = _block_index(dst_blocks.to(dev, torch.int64), dst_pool.shape[0])
+    order = torch.arange(n, device=dev)
+    last = torch.full((dst_pool.shape[0],), -1, dtype=torch.int64,
+                      device=dev).scatter_reduce_(0, di, order, "amax")
+    keep = last[di] == order
+    dst_pool[di[keep]] = src_pool[si[keep]]
+    return dst_pool
+
+
+def block_copy(src_pool, dst_pool, src_blocks, dst_blocks):
+    """Per-block copy ``dst_pool[dst_blocks[i]] = src_pool[src_blocks[i]]``
+    over (nb, E) pools, in place on ``dst_pool`` (returned).  Indices:
+    (n,) int32 on the pools' device.  Any row size.
+
+    CPU tensors take ``block_copy_plain``; CUDA tensors launch the kernel
+    (one CTA per index pair, after a pass that picks the last pair naming
+    each destination block) and count it in ``block_copy.launches``."""
+    if not dst_pool.is_cuda:
+        return block_copy_plain(src_pool, dst_pool, src_blocks, dst_blocks)
+    what = "block_copy"
+    _check_copy_args(src_pool, dst_pool, (src_blocks, dst_blocks), what)
+    n = src_blocks.shape[0]
+    if dst_blocks.shape != (n,) or src_blocks.dim() != 1:
+        raise ValueError(f"{what}: src_blocks and dst_blocks must be (n,)")
+    if src_pool.dim() != 2 or src_pool.shape[1:] != dst_pool.shape[1:]:
+        raise ValueError(f"{what}: pools must be (nb, E) with one E, got "
+                         f"{tuple(src_pool.shape)} and "
+                         f"{tuple(dst_pool.shape)}")
+    row_bytes = src_pool.shape[1] * src_pool.element_size()
+    if n == 0 or row_bytes == 0 or 0 in (src_pool.shape[0],
+                                         dst_pool.shape[0]):
+        return dst_pool
+    winner = torch.empty((dst_pool.shape[0],), dtype=torch.int32,
+                         device=dst_pool.device)
+    lib = build.library("block_copy")
+    code = lib.fs_copy_blocks(
+        src_pool.data_ptr(), dst_pool.data_ptr(), src_blocks.data_ptr(),
+        dst_blocks.data_ptr(), n, src_pool.shape[0], dst_pool.shape[0],
+        row_bytes, winner.data_ptr(),
+        torch.cuda.current_stream(dst_pool.device).cuda_stream)
+    build.check_launch(code, what)
+    block_copy.launches += 1
+    return dst_pool
+
+
+def block_copy_grouped_plain(src_pool, dst_pool, src_starts, dst_starts,
+                             run_lens, run_blocks: int):
+    """Plain version: the grid's steps (run r, j < min(len_r, run_blocks))
+    in the TPU kernel's order, each ``dst[d_r + j] = src[s_r + j]`` with
+    the TPU index rule, as one per-block copy (the last step naming a
+    block wins).  Writes ``dst_pool`` in place and returns it."""
+    dev = dst_pool.device
+    j = torch.arange(run_blocks, device=dev, dtype=torch.int64)[None, :]
+    live = j < run_lens.to(dev, torch.int64)[:, None]
+    si = (src_starts.to(dev, torch.int64)[:, None] + j)[live]
+    di = (dst_starts.to(dev, torch.int64)[:, None] + j)[live]
+    return block_copy_plain(src_pool, dst_pool, si, di)
+
+
+def block_copy_grouped(src_pool, dst_pool, src_starts, dst_starts, run_lens,
+                       run_blocks: int):
+    """Grouped copy ``dst_pool[d:d+l] = src_pool[s:s+l]`` per run over
+    (nb, E) pools, in place on ``dst_pool`` (returned).  starts / lens:
+    (n_runs,) int32 on the pools' device; ``run_blocks``: the grid's
+    per-run extent (steps j >= len copy nothing).  Any row size.
+
+    CPU tensors take ``block_copy_grouped_plain``; CUDA tensors launch the
+    run-copy kernel with one plane (C = 1), after a pass that picks the
+    last step naming each destination block, and count it in
+    ``block_copy_grouped.launches``."""
+    if not dst_pool.is_cuda:
+        return block_copy_grouped_plain(src_pool, dst_pool, src_starts,
+                                        dst_starts, run_lens, run_blocks)
+    if src_pool.dim() != 2 or dst_pool.dim() != 2:
+        raise ValueError(f"block_copy_grouped: pools must be (nb, E), got "
+                         f"{tuple(src_pool.shape)} and "
+                         f"{tuple(dst_pool.shape)}")
+    winner = torch.empty((dst_pool.shape[0],), dtype=torch.int32,
+                         device=dst_pool.device)
+    if _copy_runs_cuda(src_pool[None], dst_pool[None], src_starts,
+                       dst_starts, run_lens, run_blocks,
+                       "block_copy_grouped", winner):
+        block_copy_grouped.launches += 1
+    return dst_pool
+
+
+block_copy.launches = 0
+block_copy_grouped.launches = 0
 
 
 def runs_to_indices(runs: List[Tuple[int, int]]) -> List[int]:

@@ -32,6 +32,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES: Dict[str, str] = {
     "paged_attention": "paged_attention.cu",
     "block_copy": "block_copy.cu",
+    "flash_attention": "flash_attention.cu",
+    "gla_scan": "gla_scan.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -100,21 +102,31 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, BuildResult]:
     return results
 
 
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+
+# each source's C entry points: name -> (argument types, result type)
+SIGNATURES = {
+    "paged_attention": {
+        "fs_paged_attention_bf16": ([_P] * 6 + [_I] * 8 + [_F, _P], _I)},
+    "block_copy": {
+        "fs_copy_runs": ([_P] * 5 + [_I] * 3 + [_LL] * 3 + [_P, _P], _I),
+        "fs_copy_blocks": ([_P] * 4 + [_I] + [_LL] * 3 + [_P, _P], _I)},
+    "flash_attention": {
+        "fs_flash_attention": ([_P] * 4 + [_I] * 7 + [_F, _P], _I)},
+    "gla_scan": {
+        "fs_gla_scan_scalar": ([_P] * 6 + [_I] * 6 + [_P], _I)},
+}
+
+
 @functools.cache
 def library(name: str) -> ctypes.CDLL:
     """The loaded library for ``name``, built first if needed (once per
     process)."""
     lib = ctypes.CDLL(str(build([name])[name].path))
-    if name == "paged_attention":
-        fn = lib.fs_paged_attention_bf16
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    elif name == "block_copy":
-        fn = lib.fs_copy_runs
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                       + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+    for fn_name, (argtypes, restype) in SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = restype
     return lib
 
 

@@ -18,6 +18,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import block_copy as _bc
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import gla_scan as _gla
 from repro_torch.kernels import paged_attention as _pa
 
 
@@ -26,6 +28,46 @@ def paged_attention(q, k_pool, v_pool, block_tables, context_lens, scale,
     return _pa.paged_attention(q, k_pool, v_pool, block_tables, context_lens,
                                scale,
                                pages_per_compute_block=pages_per_compute_block)
+
+
+def flash_attention(q, k, v, *, causal=True, block_q=128, block_k=128):
+    return _fa.flash_attention(q, k, v, causal=causal, block_q=block_q,
+                               block_k=block_k)
+
+
+def _blocks_on(blocks, device) -> torch.Tensor:
+    """Block indices (a sequence or a tensor) as int32 on ``device``."""
+    if isinstance(blocks, torch.Tensor):
+        return blocks.to(device, torch.int32).contiguous()
+    return to_device(np.asarray(blocks, np.int32).reshape(-1), device)
+
+
+def copy_blocks(src_pool, dst_pool, src_blocks, dst_blocks):
+    """Per-block scattered copy (vLLM baseline data plane):
+    dst_pool[dst_blocks[i]] = src_pool[src_blocks[i]], in place on
+    ``dst_pool`` (the reference aliases it), which is returned."""
+    dev = dst_pool.device
+    return _bc.block_copy(src_pool, dst_pool, _blocks_on(src_blocks, dev),
+                          _blocks_on(dst_blocks, dev))
+
+
+def copy_block_runs(src_pool, dst_pool, runs: Sequence[Tuple[int, int]],
+                    dst_starts: Sequence[int]):
+    """Grouped copy: runs[i] = (src_start, n_blocks) -> dst_starts[i], in
+    place on ``dst_pool``, which is returned."""
+    if not runs:
+        return dst_pool
+    dev = dst_pool.device
+    return _bc.block_copy_grouped(
+        src_pool, dst_pool, _blocks_on([r[0] for r in runs], dev),
+        _blocks_on(list(dst_starts), dev),
+        _blocks_on([r[1] for r in runs], dev),
+        run_blocks=max(1, int(max(r[1] for r in runs))))
+
+
+def gla_scan_scalar(q, k, v, logw, *, chunk=64):
+    """Chunked scalar-decay gated linear attention (Mamba2/SSD hot path)."""
+    return _gla.gla_scan_scalar(q, k, v, logw, chunk=chunk)
 
 
 def _next_pow2(n: int) -> int:

@@ -19,6 +19,9 @@ sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels import block_copy as bc  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import gla_scan as gla  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 
@@ -124,6 +127,86 @@ def test_bounds_follow_the_published_peaks():
     assert by == "bytes" and ms == pytest.approx(1.0)
     ms, by = chip_smoke.bound_ms(1.0, 989e9)
     assert by == "operations" and ms == pytest.approx(1.0)
+
+
+def test_new_rows_bounds_follow_their_work():
+    """qwen2-1.5b prefill (B 1, 12 heads, T 2048, D 128, causal, bf16):
+    25.2 MB and 12.9 GFLOP over the visible pairs, bound by operations at
+    0.0130 ms; zamba2-7b's SSD scan (112 heads, T 4096, N = P = chunk =
+    64): 238.6 MB, bound by bytes at 0.0712 ms."""
+    nbytes, flops = chip_smoke.flash_work(1, 12, 2048, 2048, 128, True)
+    assert nbytes == 4 * 12 * 2048 * 128 * 2
+    assert flops == 4 * 12 * 128 * 2048 * 2049 // 2
+    ms, by = chip_smoke.bound_ms(nbytes, flops)
+    assert by == "operations" and ms == pytest.approx(0.013035, rel=1e-4)
+    _, full = chip_smoke.flash_work(1, 12, 2048, 2048, 128, False)
+    assert full == 4 * 12 * 128 * 2048 * 2048
+    # T != S: rows past S see all S keys
+    assert chip_smoke.flash_work(1, 1, 4, 2, 1, True)[1] == 4 * (1 + 2 * 3)
+    nbytes, flops = chip_smoke.gla_work(1, 112, 4096, 64, 64, 64)
+    assert nbytes == 112 * 4096 * (4 * 64 * 2 + 4) + 112 * 64 * 64 * 4
+    assert flops == 2 * 112 * 64 * (2 * 64 ** 3 + 64 * 65 // 2 * 128)
+    ms, by = chip_smoke.bound_ms(nbytes, flops)
+    assert by == "bytes" and ms == pytest.approx(0.071209, rel=1e-4)
+
+
+def test_block_copy_case_moves_the_gather_chunk():
+    """The per-block pairs and grouped runs of the 2-D case copy exactly
+    the blocks the run gather stages, into the slab's layout (a smaller
+    pool of the same block shape on the CPU)."""
+    case = chip_smoke.copy_case(torch.device("cpu"), seed=1, nb=160, L=2)
+    slab, total = ops.gather_swap_runs(case["pool"], case["runs"])
+    c2 = chip_smoke.copy_2d_case(case)
+    assert c2["si"].numel() == 4 * total and c2["g_src"].numel() == 4 * 3
+    assert c2["run_blocks"] == 32
+    want = slab.reshape(c2["n_dst"], c2["E"]).view(torch.int16)
+    fresh = lambda: torch.zeros((c2["n_dst"], c2["E"]), dtype=torch.bfloat16)
+    outs = (bc.block_copy(c2["src"], fresh(), c2["si"], c2["di"]),
+            bc.block_copy_grouped(c2["src"], fresh(), c2["g_src"],
+                                  c2["g_dst"], c2["g_len"],
+                                  c2["run_blocks"]),
+            ops.copy_block_runs(c2["src"], fresh(), c2["run_list"],
+                                c2["dst_starts"]))
+    for out in outs:
+        assert torch.equal(out.view(torch.int16), want)
+
+
+def test_flash_tolerance_fails_a_dropped_128_key_tile():
+    """The flash check's per-element bound on causal prefill rows of 2048
+    keys: one bf16 ulp passes, the late rows missing one 128-key tile
+    fail."""
+    q, k, v = chip_smoke.flash_case(1, 2, 2048, 128, torch.device("cpu"),
+                                    seed=2048)
+    ref = fa.flash_attention_plain(q, k, v)
+    assert chip_smoke.attention_error(ref, ref, "flash_attention") == 0.0
+    up = (ref.float() * (1 + 2 ** -8)).bfloat16()
+    assert chip_smoke.attention_error(up, ref, "flash_attention") > 0
+    s = torch.einsum("bhtd,bhsd->bhts", q.float(), k.float()) * 128 ** -0.5
+    rows = torch.arange(2048)[:, None]
+    cols = torch.arange(2048)[None, :]
+    dropped = (cols >= 1024) & (cols < 1152) & (rows >= 1152)
+    s = s.masked_fill((cols > rows) | dropped, -1e30)
+    short = (torch.softmax(s, dim=-1) @ v.float()).bfloat16()
+    with pytest.raises(AssertionError, match="flash_attention: max abs"):
+        chip_smoke.attention_error(short, ref, "flash_attention")
+
+
+def test_gla_bounds_pass_one_ulp_and_fail_a_skipped_chunk():
+    """The scan check's bounds on zamba2-7b's head shape (2 heads, T 512
+    on the CPU): y one bf16 ulp up passes; a scan that drops one chunk's
+    keys from the state fails on y and S."""
+    q, k, v, logw = chip_smoke.gla_case(torch.device("cpu"), 3, H=2, T=512)
+    y, s = gla.gla_scan_scalar_plain(q, k, v, logw)
+    assert chip_smoke.gla_errors(y, s, y, s) == (0.0, 0.0)
+    up = (y.float() * (1 + 2 ** -8)).bfloat16()
+    assert chip_smoke.gla_errors(up, s, y, s)[0] > 0
+    k2 = k.clone()
+    k2[:, :, 448:] = 0                      # the last chunk adds nothing
+    y2, s2 = gla.gla_scan_scalar_plain(q, k2, v, logw)
+    with pytest.raises(AssertionError, match="y max abs"):
+        chip_smoke.gla_errors(y2, s, y, s)
+    with pytest.raises(AssertionError, match="S max abs"):
+        chip_smoke.gla_errors(y, s2, y, s)
 
 
 def test_refuses_without_gpu_and_outside_a_checkout(tmp_path):

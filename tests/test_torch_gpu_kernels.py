@@ -13,6 +13,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import block_copy as bc
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import gla_scan as gla
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
 
@@ -127,3 +129,198 @@ def test_swap_runs_kernel_byte_equal(cuda, runs):
     ops.scatter_swap_runs(ref2, cpu_slab, dst_runs)
     assert torch.equal(pool2.cpu().view(torch.int16), ref2.view(torch.int16))
     assert total == sum(n for _, n in runs)
+
+
+# ---------------------------------------------------------------------------
+# per-block copy, grouped copy, flash attention, SSD scan
+# ---------------------------------------------------------------------------
+
+
+def _bytes_equal(a, b):
+    return torch.equal(a.contiguous().view(torch.uint8).cpu(),
+                       b.contiguous().view(torch.uint8).cpu())
+
+
+def _pool_pair(cuda, rng, n_src, n_dst, E, dtype):
+    src = torch.from_numpy(rng.standard_normal((n_src, E)).astype(np.float32))
+    dst = torch.from_numpy(rng.standard_normal((n_dst, E)).astype(np.float32))
+    return src.to(cuda, dtype), dst.to(cuda, dtype)
+
+
+@pytest.mark.parametrize("n_src,n_dst,si,di,E", [
+    (8, 8, [4, 0, 7], [1, 6, 2], 128),          # tests/test_kernels.py's
+    (16, 4, [3, 9, 15, 0], [2, 0, 3, 1], 256),  # grid shapes
+    (32, 32, list(range(31, -1, -1)), list(range(32)), 64),
+    (4, 4, [9, -1, 0, 2], [0, 1, 2, 3], 24),    # clamped and negative
+    (4, 4, [0, 2], [1, 1], 16),                 # repeated: last pair wins
+    (4, 4, [0, 1, 2, 3], [2, 2, 7, 2], 16),     # repeated through a clamp
+    (8, 10, [7, 0, 3], [9, 2, 5], 5),           # 10- / 20-byte rows
+    (8, 10, [7, 0, 3], [9, 2, 5], 13),          # 26- / 52-byte rows
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_copy_kernel_byte_equal(cuda, n_src, n_dst, si, di, E, dtype):
+    rng = np.random.default_rng(n_src * 31 + E)
+    src, dst = _pool_pair(cuda, rng, n_src, n_dst, E, dtype)
+    want = bc.block_copy_plain(src, dst.clone(), torch.tensor(si),
+                               torch.tensor(di))
+    before = bc.block_copy.launches
+    out = ops.copy_blocks(src, dst, si, di)
+    torch.cuda.synchronize()
+    assert out is dst and bc.block_copy.launches == before + 1
+    assert _bytes_equal(out, want)
+
+
+@pytest.mark.parametrize("src_s,dst_s,lens,run_blocks,E", [
+    ([0, 10], [1, 6], [4, 2], 4, 96),           # tests/test_kernels.py's
+    ([3], [1], [1], 1, 96),                     # grid runs
+    ([0, 8, 20], [1, 10, 19], [8, 8, 4], 8, 96),
+    ([1], [2], [3], 3, 6),                      # off the end: last wins
+    ([-5], [-1], [4], 4, 6),                    # negative starts
+    ([0, 2, 6], [0, 1, 3], [2, 2, 0], 4, 6),    # overlap, pad run
+    ([0, 1], [1, 0], [3, 2], 2, 6),             # run_blocks cuts a run
+    ([0, 5], [6, 1], [3, 2], 3, 7),             # 14- / 28-byte rows
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_copy_grouped_kernel_byte_equal(cuda, src_s, dst_s, lens,
+                                              run_blocks, E, dtype):
+    rng = np.random.default_rng(run_blocks * 17 + E)
+    nb = 40 if E == 96 else 8
+    src, dst = _pool_pair(cuda, rng, nb, nb, E, dtype)
+    idx = [torch.tensor(a, dtype=torch.int32, device=cuda)
+           for a in (src_s, dst_s, lens)]
+    want = bc.block_copy_grouped_plain(src, dst.clone(), *idx, run_blocks)
+    before = bc.block_copy_grouped.launches
+    out = bc.block_copy_grouped(src, dst, *idx, run_blocks)
+    torch.cuda.synchronize()
+    assert out is dst and bc.block_copy_grouped.launches == before + 1
+    assert _bytes_equal(out, want)
+
+
+def test_copies_refuse_aliased_pools(cuda):
+    pool = torch.zeros((8, 64), device=cuda)
+    idx = torch.tensor([0, 1], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="share memory"):
+        bc.block_copy(pool, pool, idx, idx)
+    with pytest.raises(ValueError, match="share memory"):
+        bc.block_copy_grouped(pool, pool[4:], idx[:1], idx[:1], idx[1:], 1)
+
+
+# bf16 outputs of fp32 sums taken in other orders: one bf16 ulp (2^-7
+# relative) per element; fp32 outputs: the sums' rounding only
+FLASH_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
+             torch.bfloat16: dict(atol=1e-5, rtol=2 ** -7)}
+
+
+@pytest.mark.parametrize("B,H,T,S,D", [
+    (1, 2, 128, 128, 64),         # tests/test_kernels.py's shapes
+    (2, 4, 256, 256, 64),
+    (1, 1, 512, 512, 128),
+    (1, 12, 2048, 2048, 128),     # qwen2-1.5b prefill
+    (2, 3, 64, 192, 128),         # T != S: the top-left causal mask
+    (1, 2, 320, 128, 64),
+    (1, 2, 96, 96, 128),          # a ragged last q and k tile
+])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda, B, H, T, S, D, causal,
+                                              dtype):
+    g = torch.Generator(device=cuda).manual_seed(B * 100 + T + S)
+    q = torch.randn((B, H, T, D), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, H, S, D), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, H, S, D), generator=g, device=cuda).to(dtype)
+    blk = 32 if T == 96 else 64
+    before = fa.flash_attention.launches
+    out = ops.flash_attention(q, k, v, causal=causal, block_q=blk,
+                              block_k=blk)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    ref = fa.flash_attention_plain(q, k, v, causal=causal, block_q=blk,
+                                   block_k=blk)
+    assert out.dtype == dtype
+    torch.testing.assert_close(out.float(), ref.float(), **FLASH_TOL[dtype])
+
+
+def test_flash_attention_kernel_refuses_other_head_dims(cuda):
+    q = torch.zeros((1, 1, 64, 96), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(q, q, q)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q[..., :64].half().contiguous(),
+                           q[..., :64].half().contiguous(),
+                           q[..., :64].half().contiguous())
+
+
+# SSD scan: fp32 sums in other orders; bf16 y may differ by one bf16 ulp
+GLA_Y_TOL = {torch.float32: dict(atol=2e-5, rtol=1e-5),
+             torch.bfloat16: dict(atol=2e-5, rtol=2 ** -7)}
+GLA_S_TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("B,H,T,N,P,chunk", [
+    (1, 1, 64, 8, 8, 16),         # tests/test_kernels.py's shapes
+    (2, 3, 128, 16, 32, 32),
+    (1, 2, 96, 32, 16, 32),
+    (2, 1, 64, 64, 64, 64),
+    (1, 4, 1024, 64, 64, 64),     # zamba2-7b's SSD head at a shorter T
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gla_scan_kernel_matches_plain(cuda, B, H, T, N, P, chunk, dtype):
+    g = torch.Generator(device=cuda).manual_seed(T + N + P)
+    q = (torch.randn((B, H, T, N), generator=g, device=cuda) * 0.5).to(dtype)
+    k = (torch.randn((B, H, T, N), generator=g, device=cuda) * 0.5).to(dtype)
+    v = (torch.randn((B, H, T, P), generator=g, device=cuda) * 0.5).to(dtype)
+    logw = -torch.exp(torch.randn((B, H, T), generator=g, device=cuda)
+                      * 0.5 - 1.0)
+    before = gla.gla_scan_scalar.launches
+    y, s = ops.gla_scan_scalar(q, k, v, logw, chunk=chunk)
+    torch.cuda.synchronize()
+    assert gla.gla_scan_scalar.launches == before + 1
+    want_y, want_s = gla.gla_scan_scalar_plain(q, k, v, logw, chunk=chunk)
+    assert y.dtype == dtype and s.dtype == torch.float32
+    torch.testing.assert_close(y.float(), want_y.float(), **GLA_Y_TOL[dtype])
+    torch.testing.assert_close(s, want_s, **GLA_S_TOL)
+
+
+def test_wrappers_never_fall_back_to_the_plain_version(cuda, monkeypatch):
+    """With every plain version made to raise, each wrapper given CUDA
+    tensors still returns the right result: it launched its kernel."""
+    rng = np.random.default_rng(0)
+    src, dst = _pool_pair(cuda, rng, 8, 8, 64, torch.bfloat16)
+    si, di = [3, 1, 7], [0, 5, 2]
+    runs = torch.tensor([0, 4, 3], dtype=torch.int32, device=cuda)
+    starts = torch.tensor([2, 0, 2], dtype=torch.int32, device=cuda)
+    want_copy = bc.block_copy_plain(src, dst.clone(), torch.tensor(si),
+                                    torch.tensor(di))
+    want_grouped = bc.block_copy_grouped_plain(src, dst.clone(), runs[:2],
+                                               starts[:2], runs[1:], 3)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (torch.randn((1, 2, 128, 128), generator=g, device=cuda)
+               .bfloat16() for _ in range(3))
+    want_fa = fa.flash_attention_plain(q, k, v)
+    # the scan's inputs drawn as the tests above draw them, the scale its
+    # fp32 tolerance is stated for
+    gq, gk = (torch.randn((1, 2, 128, 64), generator=g, device=cuda) * 0.5
+              for _ in range(2))
+    gv = torch.randn((1, 2, 128, 32), generator=g, device=cuda) * 0.5
+    glw = -torch.exp(torch.randn((1, 2, 128), generator=g, device=cuda)
+                     * 0.5 - 1.0)
+    want_y, want_s = gla.gla_scan_scalar_plain(gq, gk, gv, glw)
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+    for mod, name in ((bc, "block_copy_plain"),
+                      (bc, "block_copy_grouped_plain"),
+                      (fa, "flash_attention_plain"),
+                      (gla, "gla_scan_scalar_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    out = ops.copy_blocks(src, dst.clone(), si, di)
+    assert _bytes_equal(out, want_copy)
+    out = bc.block_copy_grouped(src, dst.clone(), runs[:2], starts[:2],
+                                runs[1:], 3)
+    assert _bytes_equal(out, want_grouped)
+    torch.testing.assert_close(ops.flash_attention(q, k, v).float(),
+                               want_fa.float(),
+                               **FLASH_TOL[torch.bfloat16])
+    y, s = ops.gla_scan_scalar(gq, gk, gv, glw)
+    torch.testing.assert_close(y, want_y, **GLA_Y_TOL[torch.float32])
+    torch.testing.assert_close(s, want_s, **GLA_S_TOL)
