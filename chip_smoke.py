@@ -35,14 +35,21 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                and named so.
   5. e2e     — every conversation's greedy tokens against a plain dense
                forward (no pages, plain attention) on the card.
+  6. device_times — the device time of each phase-3 kernel and library
+               call alone: their CUDA kernels under ``torch.profiler``, the
+               wrapper's host time left out.  After the engine phases,
+               since a profiler session leaves the CUDA activity tracing
+               (CUPTI) attached, which adds host time to every later
+               launch.
   (profile)  — with ``--profile`` only: one more engine run under
                ``torch.profiler``; the device's idle share of its wall time
                and its operations by device time.
 
 Then a ``kernels`` line (per kernel: launches on its path, error, times
-and bound) and, as the last line, ``{"ok": true, "device": {...}}``.  Any
-failure raises: the exit code is then not 0 and the last line is not
-printed.  Imports nothing of JAX or of the JAX package.
+around the call and on the device, and bound) and, as the last line,
+``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
+then not 0 and the last line is not printed.  Imports nothing of JAX or
+of the JAX package.
 """
 from __future__ import annotations
 
@@ -114,6 +121,72 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, flush=None) -> float:
         end.synchronize()
         total += start.elapsed_time(end)
     return total / iters
+
+
+def kernel_ms(events, iters: int, skip=frozenset()) -> float:
+    """Mean device ms per call from profiler device events (objects with
+    ``name`` and ``time_range.start`` / ``.end`` in µs): the summed
+    durations of every event not named in ``skip``, over ``iters`` calls.
+    Every call launches the same kernels, so raises where no event is
+    left or their count is not a multiple of ``iters`` (events lost or
+    from elsewhere)."""
+    us = [e.time_range.end - e.time_range.start for e in events
+          if e.name not in skip]
+    if not us or len(us) % iters:
+        raise AssertionError(f"the profiler recorded {len(us)} device "
+                             f"kernels for {iters} calls")
+    return sum(us) / 1e3 / iters
+
+
+def _device_events(prof):
+    from torch.autograd import DeviceType
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3, flush=None) -> float:
+    """Mean device time of ``fn`` in ms: its CUDA kernels' durations under
+    ``torch.profiler`` over ``iters`` calls, each after the L2 flush of
+    ``time_ms`` (whose own kernels, found in a first profiled flush, are
+    left out), so the wrapper's host time is not counted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for _ in range(warmup):
+        fn()
+    skip = set()
+    if flush is not None:
+        with profile(activities=acts) as prof:
+            flush.zero_()
+            torch.cuda.synchronize()
+        skip = {e.name for e in _device_events(prof)}
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        for _ in range(iters):
+            if flush is not None:
+                flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    return kernel_ms(_device_events(prof), iters, skip)
+
+
+def timings(kernel, plain, library, flush) -> dict:
+    """CUDA-event means around three callables (``library`` may be None):
+    ``ms``, ``plain_ms``, ``library_ms``; ``fns`` keeps the kernel and the
+    library call for ``add_device_times``."""
+    return {"ms": time_ms(kernel, flush=flush),
+            "plain_ms": time_ms(plain, iters=5, flush=flush),
+            "library_ms": (None if library is None
+                           else time_ms(library, flush=flush)),
+            "fns": (kernel, library)}
+
+
+def add_device_times(timed: dict, flush) -> None:
+    """``device_ms`` and ``library_device_ms`` of a ``timings`` result,
+    from its kept callables (which it then drops)."""
+    kernel, library = timed.pop("fns")
+    timed["device_ms"] = device_ms(kernel, flush=flush)
+    timed["library_device_ms"] = (None if library is None
+                                  else device_ms(library, flush=flush))
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -199,9 +272,6 @@ def time_attention(case, flush):
     from repro_torch.kernels import paged_attention as pa
     args = (case["q"], case["k"], case["v"], case["bt"], case["ctx"],
             case["scale"], case["ppcb"])
-    ms = time_ms(lambda: pa.paged_attention(*args), flush=flush)
-    plain_ms = time_ms(lambda: pa.paged_attention_plain(*args), iters=5,
-                       flush=flush)
     # yardstick only: SDPA over the table's K/V gathered beforehand
     B, Hq, D = case["q"].shape
     _, bs, Hkv, _ = case["k"].shape
@@ -212,10 +282,11 @@ def time_attention(case, flush):
     mask = (torch.arange(S, device=bt.device)[None, :]
             < case["ctx"].long()[:, None])[:, None, None, :]
     q4 = case["q"][:, :, None, :]
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q4, kg, vg, attn_mask=mask, scale=case["scale"], enable_gqa=True),
-        flush=flush)
-    return ms, plain_ms, library_ms
+    return timings(lambda: pa.paged_attention(*args),
+                   lambda: pa.paged_attention_plain(*args),
+                   lambda: F.scaled_dot_product_attention(
+                       q4, kg, vg, attn_mask=mask, scale=case["scale"],
+                       enable_gqa=True), flush)
 
 
 def copy_case(device, seed: int, nb=512, runs=((3, 20), (40, 12), (100, 32)),
@@ -238,14 +309,14 @@ def check_copies(case):
     from repro_torch.kernels import ops
     pool, runs = case["pool"], case["runs"]
     slab, total = ops.gather_swap_runs(pool, runs)
-    src, dst, lens = ops._pad_runs(runs)[:3]
+    src, dst, lens, _, _, rb = ops._pad_runs(runs)
     L, K, nb, bs, H, D = pool.shape
     p5 = pool.view(L * K, nb, bs, H, D)
     dev = pool.device
     ref = torch.zeros_like(slab)
     bc.copy_runs_plain(p5, ref, torch.from_numpy(src).to(dev),
                        torch.from_numpy(dst).to(dev),
-                       torch.from_numpy(lens).to(dev))
+                       torch.from_numpy(lens).to(dev), rb)
     if not torch.equal(slab.view(torch.int16), ref.view(torch.int16)):
         raise AssertionError("block_gather_runs: slab differs from plain")
     dst_runs, off = [], 7                 # other, disjoint places
@@ -254,11 +325,11 @@ def check_copies(case):
         off += n + 5
     pool2 = torch.zeros_like(pool)
     ops.scatter_swap_runs(pool2, slab, dst_runs)
-    s2, d2, l2 = ops._pad_runs(dst_runs)[:3]
+    s2, d2, l2, _, _, rb2 = ops._pad_runs(dst_runs)
     ref2 = torch.zeros_like(pool).view(L * K, nb, bs, H, D)
     bc.copy_runs_plain(slab, ref2, torch.from_numpy(d2).to(dev),
                        torch.from_numpy(s2).to(dev),
-                       torch.from_numpy(l2).to(dev))
+                       torch.from_numpy(l2).to(dev), rb2)
     torch.cuda.synchronize()
     if not torch.equal(pool2.view(torch.int16),
                        ref2.view(pool.shape).view(torch.int16)):
@@ -269,8 +340,8 @@ def check_copies(case):
 
 
 def time_copies(case, dst_runs, flush):
-    """CUDA-event times of both directions: kernel, plain version, and
-    one PyTorch call (index_select / index_copy_) as the yardstick."""
+    """``timings`` of both directions: kernel, plain version, and one
+    PyTorch call (index_select / index_copy_) as the yardstick."""
     import torch
     from repro_torch.kernels import block_copy as bc
     from repro_torch.kernels import ops
@@ -287,26 +358,24 @@ def time_copies(case, dst_runs, flush):
     idx = torch.as_tensor([b for s, k in runs for b in range(s, s + k)],
                           device=dev)
     out = torch.empty((L * K, n, bs * H * D), dtype=pool.dtype, device=dev)
-    gather = (
-        time_ms(lambda: bc.block_gather_runs(p3, slab, t["src"], t["dst"],
-                                             t["lens"], rb), flush=flush),
-        time_ms(lambda: bc.copy_runs_plain(p3, slab, t["src"], t["dst"],
-                                           t["lens"]), iters=5, flush=flush),
-        time_ms(lambda: torch.index_select(p3, 1, idx, out=out), flush=flush))
+    gather = timings(
+        lambda: bc.block_gather_runs(p3, slab, t["src"], t["dst"],
+                                     t["lens"], rb),
+        lambda: bc.copy_runs_plain(p3, slab, t["src"], t["dst"], t["lens"],
+                                   rb),
+        lambda: torch.index_select(p3, 1, idx, out=out), flush)
     s2, d2, l2, _, _, rb2 = ops._pad_runs(dst_runs)
     t2 = {k: torch.from_numpy(a).to(dev) for k, a in
           (("src", s2), ("dst", d2), ("lens", l2))}
     idx2 = torch.as_tensor([b for s, k in dst_runs
                             for b in range(s, s + k)], device=dev)
     target = torch.zeros_like(p3)
-    scatter = (
-        time_ms(lambda: bc.block_scatter_runs(slab, target, t2["dst"],
-                                              t2["src"], t2["lens"], rb2),
-                flush=flush),
-        time_ms(lambda: bc.copy_runs_plain(slab, target, t2["dst"],
-                                           t2["src"], t2["lens"]),
-                iters=5, flush=flush),
-        time_ms(lambda: target.index_copy_(1, idx2, out), flush=flush))
+    scatter = timings(
+        lambda: bc.block_scatter_runs(slab, target, t2["dst"], t2["src"],
+                                      t2["lens"], rb2),
+        lambda: bc.copy_runs_plain(slab, target, t2["dst"], t2["src"],
+                                   t2["lens"], rb2),
+        lambda: target.index_copy_(1, idx2, out), flush)
     row_bytes = bs * H * D * pool.element_size()
     nbytes = 2 * n * L * K * row_bytes        # each block read and written
     return gather, scatter, nbytes
@@ -377,10 +446,10 @@ def check_block_copies(c2, slab):
 
 
 def time_block_copies(c2, flush):
-    """(kernel, plain, library) ms of both copies and the bytes each
-    must move: every named block read and written once, its index lists
-    read.  Library: ``index_copy_`` of an ``index_select``, the indices
-    built on the device beforehand."""
+    """``timings`` of both copies and the bytes each must move: every
+    named block read and written once, its index lists read.  Library:
+    ``index_copy_`` of an ``index_select``, the indices built on the
+    device beforehand."""
     import torch
     from repro_torch.kernels import block_copy as bc
     src = c2["src"]
@@ -390,17 +459,13 @@ def time_block_copies(c2, flush):
     library = lambda: dst.index_copy_(0, di, src.index_select(0, si))
     moved = 2 * c2["si"].numel() * c2["E"] * src.element_size()
     g = (c2["g_src"], c2["g_dst"], c2["g_len"], c2["run_blocks"])
-    per_block = (
-        time_ms(lambda: bc.block_copy(src, dst, c2["si"], c2["di"]),
-                flush=flush),
-        time_ms(lambda: bc.block_copy_plain(src, dst, c2["si"], c2["di"]),
-                iters=5, flush=flush),
-        time_ms(library, flush=flush))
-    grouped = (
-        time_ms(lambda: bc.block_copy_grouped(src, dst, *g), flush=flush),
-        time_ms(lambda: bc.block_copy_grouped_plain(src, dst, *g), iters=5,
-                flush=flush),
-        time_ms(library, flush=flush))
+    per_block = timings(
+        lambda: bc.block_copy(src, dst, c2["si"], c2["di"]),
+        lambda: bc.block_copy_plain(src, dst, c2["si"], c2["di"]), library,
+        flush)
+    grouped = timings(
+        lambda: bc.block_copy_grouped(src, dst, *g),
+        lambda: bc.block_copy_grouped_plain(src, dst, *g), library, flush)
     return {"block_copy": (per_block, moved + 2 * 4 * c2["si"].numel()),
             "block_copy_grouped": (grouped,
                                    moved + 3 * 4 * c2["g_src"].numel())}
@@ -439,13 +504,10 @@ def check_flash(qkv) -> tuple:
 def time_flash(qkv, flush):
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    return (time_ms(lambda: fa.flash_attention(*qkv, causal=True),
-                    flush=flush),
-            time_ms(lambda: fa.flash_attention_plain(*qkv, causal=True),
-                    iters=5, flush=flush),
-            time_ms(lambda: F.scaled_dot_product_attention(*qkv,
-                                                           is_causal=True),
-                    flush=flush))
+    return timings(
+        lambda: fa.flash_attention(*qkv, causal=True),
+        lambda: fa.flash_attention_plain(*qkv, causal=True),
+        lambda: F.scaled_dot_product_attention(*qkv, is_causal=True), flush)
 
 
 def gla_case(device, seed: int, B=1, H=112, T=4096, N=64, P=64):
@@ -508,11 +570,9 @@ def check_gla(case) -> tuple:
 
 def time_gla(case, flush):
     from repro_torch.kernels import gla_scan as gla
-    return (time_ms(lambda: gla.gla_scan_scalar(*case, chunk=64),
-                    flush=flush),
-            time_ms(lambda: gla.gla_scan_scalar_plain(*case, chunk=64),
-                    iters=5, flush=flush),
-            None)
+    return timings(lambda: gla.gla_scan_scalar(*case, chunk=64),
+                   lambda: gla.gla_scan_scalar_plain(*case, chunk=64), None,
+                   flush)
 
 
 def run_ops_path(c2, qkv, gla_in, outs):
@@ -807,7 +867,7 @@ def main() -> int:
         case = attention_case(B, n_pages, dev, seed=B + n_pages)
         attn[(B, n_pages)] = (case, check_attention(case))
     timed = attn[(32, 128)][0]
-    a_ms, a_plain, a_lib = time_attention(timed, flush)
+    a_times = time_attention(timed, flush)
     a_bytes, a_flops = attention_work(timed)
     copies = copy_case(dev, seed=1)
     slab, dst_runs = check_copies(copies)
@@ -826,6 +886,12 @@ def main() -> int:
     gla_in = gla_case(dev, seed=3)
     gla_out, gla_err = check_gla(gla_in)
     gla_t = time_gla(gla_in, flush)
+    all_timed = {"paged_attention": a_times, "block_gather_runs": gather_t,
+                 "block_scatter_runs": scatter_t,
+                 **{k: t for k, (t, _) in block_t.items()},
+                 **{f"flash_attention_B{B}_T{T_len}": f["times"]
+                    for (B, T_len), f in flash.items()},
+                 "gla_scan_scalar": gla_t}
     emit("kernels",
          paged_attention={f"B{B}_pages{P}": err
                           for (B, P), (_, err) in attn.items()},
@@ -840,15 +906,9 @@ def main() -> int:
          gla_scan_scalar={"y": gla_err[0], "S": gla_err[1]},
          gla_tolerance={"y": {"atol": GLA_Y_ATOL, "rtol": ATTN_RTOL},
                         "S": {"atol": GLA_S_ATOL, "rtol": GLA_S_RTOL}},
-         timed={"paged_attention": [a_ms, a_plain, a_lib],
-                "block_gather_runs": list(gather_t),
-                "block_scatter_runs": list(scatter_t),
-                **{k: list(t) for k, (t, _) in block_t.items()},
-                **{f"flash_attention_B{B}_T{T_len}": list(f["times"])
-                   for (B, T_len), f in flash.items()},
-                "gla_scan_scalar": list(gla_t)},
+         timed={k: [t["ms"], t["plain_ms"], t["library_ms"]]
+                for k, t in all_timed.items()},
          timed_columns=["kernel_ms", "plain_ms", "library_ms"])
-    del flush
 
     # 3b. this slice's path: the ops API at the same full widths
     outs.update(flash_attention=flash[(1, 2048)]["out"],
@@ -903,6 +963,15 @@ def main() -> int:
          by_conv=per_conv)
     del eng
 
+    # 6. device times of phase 3's calls, after the timed engine runs
+    for t in all_timed.values():
+        add_device_times(t, flush)
+    emit("device_times", nvidia_smi=smi[0],
+         timed={k: [t["device_ms"], t["library_device_ms"]]
+                for k, t in all_timed.items()},
+         timed_columns=["kernel_device_ms", "library_device_ms"])
+    del flush, all_timed
+
     if "--profile" in sys.argv[1:]:
         emit("profile", **profile_engine(bundle, convs, **sizes))
     del bundle, params
@@ -911,12 +980,11 @@ def main() -> int:
     serving = "serving (ServingEngine, the main path)"
     ops_path = ("repro_torch.kernels.ops at full width; no caller on the "
                 "serving path, so no launches there")
-    f_ms, f_plain, f_lib = flash[(1, 2048)]["times"]
     rows = []
     for (kname, src, replaces, path, times, work, err, launched) in (
             ("paged_attention", "paged_attention.cu",
              "src/repro/kernels/paged_attention.py:129", serving,
-             (a_ms, a_plain, a_lib), (a_bytes, a_flops),
+             a_times, (a_bytes, a_flops),
              max(e for _, e in attn.values()), launches),
             ("block_gather_runs", "block_copy.cu",
              "src/repro/kernels/block_copy.py:140", serving, gather_t,
@@ -934,7 +1002,7 @@ def main() -> int:
              (block_t["block_copy_grouped"][1], 0), 0.0, ops_launches),
             ("flash_attention", "flash_attention.cu",
              "src/repro/kernels/flash_attention.py:82", ops_path,
-             (f_ms, f_plain, f_lib), flash[(1, 2048)]["work"],
+             flash[(1, 2048)]["times"], flash[(1, 2048)]["work"],
              max(f["err"] for f in flash.values()), ops_launches),
             ("gla_scan_scalar", "gla_scan.cu",
              "src/repro/kernels/gla_scan.py:85", ops_path, gla_t,
@@ -945,8 +1013,11 @@ def main() -> int:
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/csrc/{src}", "replaces": replaces,
             "launches": launched[kname], "path": path, "max_abs_err": err,
-            "ms": times[0], "plain_ms": times[1], "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": times[2]})
+            "ms": times["ms"], "plain_ms": times["plain_ms"],
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": times["library_ms"],
+            "device_ms": times["device_ms"],
+            "library_device_ms": times["library_device_ms"]})
     rows[-1]["library"] = "none: no single PyTorch call computes the scan"
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -26,14 +26,14 @@
 //   * a block index is the TPU index map's: start + j in int32 arithmetic, a
 //     negative index counts from the end of the pool, and the result is
 //     clamped into [0, n) -- never a read or write outside the pool;
-//   * where several grid steps name one destination block, the TPU's
-//     sequential grid leaves the last step's bytes.  A CUDA grid has no
-//     order, so with a `winner` array (one int per destination block) a
-//     first pass records, by atomicMax, the last step that names each block
-//     and only that step copies.  The per-block copy always takes this pass;
-//     the grouped copy too; the staged swap plane passes no array, since
-//     its runs never overlap (pool runs come from the block allocator, slab
-//     runs are disjoint offsets).
+//   * where several grid steps name one destination block (overlapping
+//     runs, or a run past the end of a pool, whose last steps clamp onto
+//     the pool's last block), the TPU's sequential grid leaves the last
+//     step's bytes.  A CUDA grid has no order, so a first pass records in
+//     a `winner` array (one int per destination block), by atomicMax, the
+//     last step that names each block, and only that step copies.  Every
+//     copy takes this pass: a memset and a marking launch of one thread
+//     per grid step.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -83,7 +83,7 @@ copy_runs_kernel(const V* __restrict__ src, V* __restrict__ dst,
   if (j >= lens[run]) return;
   const long long s = block_index(src_starts[run], j, n_src);
   const long long d = block_index(dst_starts[run], j, n_dst);
-  if (winner != nullptr && winner[d] != run * run_blocks + j) return;
+  if (winner[d] != run * run_blocks + j) return;
   if (C == 1) {
     copy_row(src + s * row_vec, dst + d * row_vec, row_vec);
     return;
@@ -181,8 +181,8 @@ int clear_winner(int* winner, long long n_dst, cudaStream_t s) {
 
 // src (C, n_src, row_bytes) and dst (C, n_dst, row_bytes): contiguous, any
 // row size.  src_starts / dst_starts / lens: int32 (n_runs,).  winner:
-// null, or int32 scratch of n_dst entries that resolves destinations named
-// by several steps as the TPU's sequential grid does.  Launches on
+// int32 scratch of n_dst entries (required) that resolves destinations
+// named by several steps as the TPU's sequential grid does.  Launches on
 // ``stream`` and returns the CUDA error code (0 = launched).
 extern "C" int fs_copy_runs(const void* src, void* dst, const void* src_starts,
                             const void* dst_starts, const void* lens,
@@ -190,7 +190,7 @@ extern "C" int fs_copy_runs(const void* src, void* dst, const void* src_starts,
                             long long n_dst, long long row_bytes,
                             void* winner, void* stream) {
   if (n_runs <= 0 || run_blocks <= 0 || run_blocks > 65535 || C <= 0 ||
-      n_src <= 0 || n_dst <= 0 || row_bytes <= 0 ||
+      n_src <= 0 || n_dst <= 0 || row_bytes <= 0 || winner == nullptr ||
       (long long)n_runs * run_blocks > 0x7fffffffLL) {
     return (int)cudaErrorInvalidValue;
   }
@@ -199,13 +199,11 @@ extern "C" int fs_copy_runs(const void* src, void* dst, const void* src_starts,
   const auto* ds = static_cast<const int*>(dst_starts);
   const auto* ls = static_cast<const int*>(lens);
   auto* win = static_cast<int*>(winner);
-  if (win != nullptr) {
-    const int err = clear_winner(win, n_dst, s);
-    if (err != 0) return err;
-    const int n_steps = n_runs * run_blocks;
-    mark_runs_kernel<<<(n_steps + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-        ds, ls, n_steps, run_blocks, n_dst, win);
-  }
+  const int err = clear_winner(win, n_dst, s);
+  if (err != 0) return err;
+  const int n_steps = n_runs * run_blocks;
+  mark_runs_kernel<<<(n_steps + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      ds, ls, n_steps, run_blocks, n_dst, win);
   switch (unit_bytes(row_bytes, src, dst)) {
     case 16: launch_runs<uint4>(src, dst, ss, ds, ls, n_runs, run_blocks, C,
                                 n_src, n_dst, row_bytes, win, s); break;

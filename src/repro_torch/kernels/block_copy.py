@@ -17,9 +17,9 @@ Every copy is in place on ``dst``, which the wrappers also return, so call
 sites read like the reference's "returns the new array" form.  Block
 indices follow the TPU kernels' index maps: int32 ``start + j``, a
 negative index counts from the end of the pool, then the index is clamped
-into the pool.  ``block_copy`` and ``block_copy_grouped`` also keep the
-sequential TPU grid's result where several steps name one destination
-block: the last step's bytes win.
+into the pool.  Every copy also keeps the sequential TPU grid's result
+where several steps name one destination block (a run past the end of a
+pool clamps its last steps onto one block): the last step's bytes win.
 
 On CPU tensors the wrappers take the plain version; on CUDA tensors they
 launch ``csrc/block_copy.cu`` or raise.
@@ -34,14 +34,16 @@ import torch
 from repro_torch.kernels import build
 
 
-def copy_runs_plain(src, dst, src_starts, dst_starts, run_lens):
-    """Plain version: one slice copy per run.  src: (C, n_src, ...); dst:
-    (C, n_dst, ...); starts/lens: (n_runs,) ints.  Writes ``dst`` in place
-    and returns it."""
-    for s, d, n in zip(src_starts.tolist(), dst_starts.tolist(),
-                       run_lens.tolist()):
-        if n > 0:
-            dst[:, d:d + n] = src[:, s:s + n]
+def copy_runs_plain(src, dst, src_starts, dst_starts, run_lens,
+                    run_blocks: int):
+    """Plain version of the run copy over C planes: the per-plane rule of
+    ``block_copy_grouped_plain`` (grid steps j < min(len_r, run_blocks),
+    the TPU index rule, the last step naming a block wins) applied to
+    every plane at once.  src: (C, n_src, ...); dst: (C, n_dst, ...);
+    starts/lens: (n_runs,) ints.  Writes ``dst`` in place and returns
+    it."""
+    block_copy_grouped_plain(src.transpose(0, 1), dst.transpose(0, 1),
+                             src_starts, dst_starts, run_lens, run_blocks)
     return dst
 
 
@@ -61,8 +63,10 @@ def _check_copy_args(src, dst, idx, what: str) -> None:
 
 
 def _copy_runs_cuda(src, dst, src_starts, dst_starts, run_lens,
-                    run_blocks: int, what: str, winner=None) -> bool:
-    """Launch the run-copy kernel; False where there is nothing to copy."""
+                    run_blocks: int, what: str) -> bool:
+    """Launch the run-copy kernel over (C, n, ...) planes, with int32
+    scratch for its last-write pass; False where there is nothing to
+    copy."""
     idx = (src_starts, dst_starts, run_lens)
     _check_copy_args(src, dst, idx, what)
     n_runs = src_starts.shape[0]
@@ -76,13 +80,14 @@ def _copy_runs_cuda(src, dst, src_starts, dst_starts, run_lens,
     row_bytes = math.prod(src.shape[2:]) * src.element_size()
     if 0 in (n_runs, src.shape[1], dst.shape[1], row_bytes):
         return False
+    winner = torch.empty((dst.shape[1],), dtype=torch.int32,
+                         device=dst.device)
     lib = build.library("block_copy")
     code = lib.fs_copy_runs(
         src.data_ptr(), dst.data_ptr(), src_starts.data_ptr(),
         dst_starts.data_ptr(), run_lens.data_ptr(), n_runs, run_blocks,
         src.shape[0], src.shape[1], dst.shape[1], row_bytes,
-        None if winner is None else winner.data_ptr(),
-        torch.cuda.current_stream(src.device).cuda_stream)
+        winner.data_ptr(), torch.cuda.current_stream(src.device).cuda_stream)
     build.check_launch(code, what)
     return True
 
@@ -94,10 +99,15 @@ def block_gather_runs(pool, slab0, src_starts, dst_starts, run_lens,
     swap path: the slab then crosses the host link as ONE transfer).
 
     pool: (C, nb, ...) and slab0: (C, n_slab, ...) with the same trailing
-    block layout; ``run_blocks``: the grid's per-run extent (>= every
-    run's length).  Writes ``slab0`` in place and returns it."""
+    block layout; ``run_blocks``: the grid's per-run extent (steps j >=
+    len copy nothing).  Writes ``slab0`` in place and returns it.
+
+    CPU tensors take ``copy_runs_plain``; CUDA tensors launch the run-copy
+    kernel over the C planes, after a pass that picks the last step
+    naming each destination block."""
     if not pool.is_cuda:
-        return copy_runs_plain(pool, slab0, src_starts, dst_starts, run_lens)
+        return copy_runs_plain(pool, slab0, src_starts, dst_starts, run_lens,
+                               run_blocks)
     if _copy_runs_cuda(pool, slab0, src_starts, dst_starts, run_lens,
                        run_blocks, "block_gather_runs"):
         block_gather_runs.launches += 1
@@ -108,9 +118,11 @@ def block_scatter_runs(slab, pool, src_starts, dst_starts, run_lens,
                        run_blocks: int):
     """Scatter a staging slab back into pool runs:
     slab[:, s:s+l] -> pool[:, d:d+l] per run (the h2d half of the staged
-    swap path).  Writes ``pool`` in place and returns it."""
+    swap path).  Writes ``pool`` in place and returns it; CPU and CUDA
+    tensors as in ``block_gather_runs``."""
     if not pool.is_cuda:
-        return copy_runs_plain(slab, pool, src_starts, dst_starts, run_lens)
+        return copy_runs_plain(slab, pool, src_starts, dst_starts, run_lens,
+                               run_blocks)
     if _copy_runs_cuda(slab, pool, src_starts, dst_starts, run_lens,
                        run_blocks, "block_scatter_runs"):
         block_scatter_runs.launches += 1
@@ -215,11 +227,9 @@ def block_copy_grouped(src_pool, dst_pool, src_starts, dst_starts, run_lens,
         raise ValueError(f"block_copy_grouped: pools must be (nb, E), got "
                          f"{tuple(src_pool.shape)} and "
                          f"{tuple(dst_pool.shape)}")
-    winner = torch.empty((dst_pool.shape[0],), dtype=torch.int32,
-                         device=dst_pool.device)
     if _copy_runs_cuda(src_pool[None], dst_pool[None], src_starts,
                        dst_starts, run_lens, run_blocks,
-                       "block_copy_grouped", winner):
+                       "block_copy_grouped"):
         block_copy_grouped.launches += 1
     return dst_pool
 

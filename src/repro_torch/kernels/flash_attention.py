@@ -12,7 +12,9 @@ bottom-right, so the two agree only when T == S.
 T or S, which must be a multiple of it); the CUDA kernel's tiles are its
 own, which changes nothing but the order of fp32 sums.  On a CPU tensor
 the wrapper computes the plain version; on a CUDA tensor it launches
-``csrc/flash_attention.cu`` (fp32 or bf16, head_dim 64 or 128) or raises.
+``csrc/flash_attention.cu`` (head_dim 64 or 128; bf16 on the tensor cores
+with the softmax weights split into two bf16 terms, fp32 on the fp32
+pipes) or raises.
 """
 from __future__ import annotations
 

@@ -191,6 +191,70 @@ def test_flash_tolerance_fails_a_dropped_128_key_tile():
         chip_smoke.attention_error(short, ref, "flash_attention")
 
 
+def _flash_tiled(q, k, v, split_p: bool):
+    """Causal attention as a tensor-core kernel with 64-key tiles computes
+    it: fp32 scores and online-softmax statistics (l from the fp32 p),
+    and P.V with bf16 operands, P either rounded to one bf16 or split into
+    hi = bf16(p) and lo = bf16(p - hi)."""
+    T, D = q.shape[2], q.shape[3]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full(q.shape[:3] + (1,), -1e30)
+    l = torch.zeros(q.shape[:3] + (1,))
+    o = torch.zeros(qf.shape)
+    rows = torch.arange(T)[:, None]
+    for k0 in range(0, k.shape[2], 64):
+        s = torch.einsum("bhtd,bhsd->bhts", qf, kf[:, :, k0:k0 + 64])
+        s = (s * D ** -0.5).masked_fill(
+            torch.arange(k0, k0 + 64)[None, :] > rows, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        hi = p.bfloat16().float()
+        pv = hi @ vf[:, :, k0:k0 + 64]
+        if split_p:
+            pv = pv + (p - hi).bfloat16().float() @ vf[:, :, k0:k0 + 64]
+        o = o * alpha + pv
+        m = m_new
+    return (o / l.clamp_min(1e-30)).bfloat16()
+
+
+def test_flash_tolerance_fails_rounded_p_and_passes_split_p():
+    """The flash check's per-element bound on causal prefill rows of 2048
+    keys: rounding the softmax weights P to one bf16 before P.V (the
+    usual FlashAttention-2 shortcut) fails it; splitting P into two bf16
+    terms, as the card's kernel does, passes it."""
+    q, k, v = chip_smoke.flash_case(1, 2, 2048, 128, torch.device("cpu"),
+                                    seed=2048)
+    ref = fa.flash_attention_plain(q, k, v)
+    with pytest.raises(AssertionError, match="flash_attention: max abs"):
+        chip_smoke.attention_error(_flash_tiled(q, k, v, split_p=False), ref,
+                                   "flash_attention")
+    split = _flash_tiled(q, k, v, split_p=True)
+    assert chip_smoke.attention_error(split, ref, "flash_attention") < 0.01
+
+
+def test_kernel_ms_reduces_profiler_device_events():
+    """Mean device ms per call: the summed µs of every device event not
+    named in ``skip`` (the L2 flush's kernels), over the call count; no
+    event left, or a count that is not a multiple of the calls (an event
+    lost), is an error."""
+    from types import SimpleNamespace as NS
+
+    def ev(name, start, end):
+        return NS(name=name, time_range=NS(start=start, end=end))
+    events = [ev("flush_fill", 0.0, 900.0), ev("flash_mma", 900.0, 960.0),
+              ev("memset", 960.0, 965.0), ev("flush_fill", 1000.0, 1900.0),
+              ev("flash_mma", 1900.0, 1980.0), ev("memset", 1980.0, 1990.0)]
+    assert chip_smoke.kernel_ms(events, 2, {"flush_fill"}) == \
+        pytest.approx((60 + 5 + 80 + 10) / 1e3 / 2)
+    assert chip_smoke.kernel_ms(events, 1) == pytest.approx(1.955)
+    with pytest.raises(AssertionError, match="recorded 0 device kernels"):
+        chip_smoke.kernel_ms(events[:1], 1, {"flush_fill"})
+    with pytest.raises(AssertionError, match="recorded 1 device kernels"):
+        chip_smoke.kernel_ms(events[:2], 2, {"flush_fill"})
+
+
 def test_gla_bounds_pass_one_ulp_and_fail_a_skipped_chunk():
     """The scan check's bounds on zamba2-7b's head shape (2 heads, T 512
     on the CPU): y one bf16 ulp up passes; a scan that drops one chunk's

@@ -131,6 +131,37 @@ def test_swap_runs_kernel_byte_equal(cuda, runs):
     assert total == sum(n for _, n in runs)
 
 
+@pytest.mark.parametrize("src,dst,lens,run_blocks", [
+    ([60], [0], [8], 8),                # past the end of the source pool
+    ([0], [60], [8], 8),                # past the end of the destination
+    ([-3], [-2], [3], 4),               # negative starts
+    ([61, -1, 0, 5], [62, 1, 30, 40], [6, 2, 0, 3], 8),   # all, a pad run
+    ([7, 2], [63, 0], [3, 5], 2),       # run_blocks cuts both runs
+])
+@pytest.mark.parametrize("direction", ["gather", "scatter"])
+def test_swap_runs_kernel_past_the_end_matches_plain(cuda, src, dst, lens,
+                                                     run_blocks, direction):
+    """Runs that leave a 64-block pool, over qwen2-1.5b's 56 planes of
+    4096 bf16: the kernel clamps each step onto the last block and keeps
+    the last step naming a block (its last-write pass), as the plain
+    version and the reference's sequential grid do.  Byte for byte."""
+    rng = np.random.default_rng(len(src) * 10 + run_blocks)
+    shape = (56, 64, 16, 2, 128)
+    a, b = (torch.from_numpy(rng.integers(-2 ** 15, 2 ** 15, shape,
+                                          dtype=np.int16))
+            .to(cuda).view(torch.bfloat16) for _ in range(2))
+    idx = [torch.tensor(x, dtype=torch.int32, device=cuda)
+           for x in (src, dst, lens)]
+    fn = {"gather": bc.block_gather_runs,
+          "scatter": bc.block_scatter_runs}[direction]
+    want = bc.copy_runs_plain(a, b.clone(), *idx, run_blocks)
+    before = fn.launches
+    out = fn(a, b, *idx, run_blocks)
+    torch.cuda.synchronize()
+    assert out is b and fn.launches == before + 1
+    assert torch.equal(out.view(torch.int16), want.view(torch.int16))
+
+
 # ---------------------------------------------------------------------------
 # per-block copy, grouped copy, flash attention, SSD scan
 # ---------------------------------------------------------------------------
@@ -219,6 +250,8 @@ FLASH_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
     (2, 3, 64, 192, 128),         # T != S: the top-left causal mask
     (1, 2, 320, 128, 64),
     (1, 2, 96, 96, 128),          # a ragged last q and k tile
+    (8, 12, 512, 512, 128),       # qwen2-1.5b prefill, B 8
+    (2, 3, 96, 352, 64),          # ragged last q and k tiles, S > T
 ])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -238,6 +271,31 @@ def test_flash_attention_kernel_matches_plain(cuda, B, H, T, S, D, causal,
                                    block_k=blk)
     assert out.dtype == dtype
     torch.testing.assert_close(out.float(), ref.float(), **FLASH_TOL[dtype])
+
+
+def test_flash_attention_bf16_kernel_runs_on_the_tensor_cores(cuda):
+    """The built flash library, disassembled: the bf16 kernels hold
+    HMMA (tensor-core) instructions, the fp32 kernels none."""
+    import re
+    import shutil
+    import subprocess
+    from pathlib import Path
+
+    from repro_torch.kernels import build
+    lib = build.build(["flash_attention"])["flash_attention"].path
+    tool = Path(build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool if tool.exists() else
+                               shutil.which("cuobjdump")), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    kernels = {}
+    for name, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)",
+                                 sass, flags=re.S):
+        kernels[name] = "HMMA" in body
+    bf16 = [n for n in kernels if "flash_mma_kernel" in n]
+    fp32 = [n for n in kernels if "flash_kernel" in n]
+    assert len(bf16) == 2 and len(fp32) == 2, sorted(kernels)
+    assert all(kernels[n] for n in bf16)
+    assert not any(kernels[n] for n in fp32)
 
 
 def test_flash_attention_kernel_refuses_other_head_dims(cuda):

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import block_copy as jax_bc
 from repro.kernels import ops as jax_ops
 from repro.kernels.block_copy import block_copy as jax_block_copy
 from repro.kernels.block_copy import block_copy_grouped as jax_grouped
@@ -191,6 +192,42 @@ def test_block_copy_grouped_edges_as_pallas(src, dst, lens, run_blocks):
                                 *(torch.tensor(a, dtype=torch.int32)
                                   for a in args), run_blocks)
     assert np.array_equal(_bits(out), _bits(want))
+
+
+@pytest.mark.parametrize("src,dst,lens,run_blocks", [
+    ([6], [0], [4], 4),                 # past the end of the source pool
+    ([0], [6], [4], 4),                 # past the end of the destination
+    ([-3], [-2], [3], 3),               # negative starts
+    ([5, -1, 0], [6, 1, 3], [4, 2, 0], 4),  # all three, and a pad run
+    ([7, 2], [7, 0], [3, 5], 2),        # run_blocks cuts both runs
+])
+@pytest.mark.parametrize("direction", ["gather", "scatter"])
+def test_run_copy_past_the_end_byte_equal_with_pallas(src, dst, lens,
+                                                     run_blocks, direction):
+    """The 56-plane run copy's plain version follows the reference's grid
+    where a run leaves a pool: steps clamp onto the last block (the last
+    step naming it wins), a negative start counts from the end, and steps
+    j >= run_blocks copy nothing; on C = 4 planes of 8-block pools, both
+    directions, byte for byte with interpret mode."""
+    rng = np.random.default_rng(len(src) * 10 + run_blocks)
+    C, nb, bs, H, D = 4, 8, 2, 1, 3
+    a = rng.standard_normal((C, nb, bs, H, D)).astype(np.float32)
+    b = rng.standard_normal((C, nb, bs, H, D)).astype(np.float32)
+    idx = [np.asarray(x, np.int32) for x in (src, dst, lens)]
+    jax_fn = {"gather": jax_bc.block_gather_runs,
+              "scatter": jax_bc.block_scatter_runs}[direction]
+    port_fn = {"gather": bc.block_gather_runs,
+               "scatter": bc.block_scatter_runs}[direction]
+    want = jax_fn(jnp.asarray(a, jnp.bfloat16), jnp.asarray(b, jnp.bfloat16),
+                  *(jnp.asarray(x) for x in idx), run_blocks=run_blocks)
+    ta, tb = (torch.from_numpy(x).bfloat16() for x in (a, b))
+    ti = [torch.from_numpy(x) for x in idx]
+    launches = port_fn.launches
+    out = port_fn(ta, tb.clone(), *ti, run_blocks)
+    assert port_fn.launches == launches              # CPU: plain version
+    plain = bc.copy_runs_plain(ta, tb.clone(), *ti, run_blocks)
+    for got in (out, plain):
+        assert np.array_equal(_bits(got), _bits(want))
 
 
 # ---------------------------------------------------------------------------
