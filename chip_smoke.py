@@ -15,7 +15,10 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                the card, and CUDA-event times of the kernel, the plain
                version and one PyTorch library call computing the same
                function (where one exists).  Shapes: qwen2-1.5b's decode
-               attention and one 64-block swap chunk (gather, scatter, and
+               attention (B 8 and 32 over tables of 64 and 128 pages, and
+               the engine's bucket, B 8 x 64 pages with contexts 256-600;
+               timed at B 32 x 128 pages and at the engine's bucket) and
+               one 64-block swap chunk (gather, scatter, and
                the same chunk as per-block pairs and as grouped 2-D runs:
                byte-equal); its prefill attention, B 1 x T 2048 and
                B 8 x T 512 (flash, every element within a bf16 tolerance);
@@ -42,8 +45,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                (CUPTI) attached, which adds host time to every later
                launch.
   (profile)  — with ``--profile`` only: one more engine run under
-               ``torch.profiler``; the device's idle share of its wall time
-               and its operations by device time.
+               ``torch.profiler``; the device's idle share of its wall time,
+               its operations by device time, and the paged-attention
+               kernels' (split and combine) launches and device time.
 
 Then a ``kernels`` line (per kernel: launches on its path, error, times
 around the call and on the device, and bound) and, as the last line,
@@ -203,10 +207,12 @@ def bound_ms(nbytes: float, flops: float):
 
 
 def attention_case(B: int, n_pages: int, device, seed: int, Hq=12, Hkv=2,
-                   D=128, bs=16):
+                   D=128, bs=16, ctx_range=None):
     """Paged-attention inputs at qwen2-1.5b's head shape: contexts spread
     over 1..n_pages*bs, row 0 with ctx 0 (the uniform mean of V) and the
-    last row a freed decode row (trash page, ctx 1)."""
+    last row a freed decode row (trash page, ctx 1); or, given
+    ``ctx_range`` (lo, hi), contexts spread evenly over it and no such
+    rows, as the engine's decode batch holds them."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
@@ -216,10 +222,13 @@ def attention_case(B: int, n_pages: int, device, seed: int, Hq=12, Hkv=2,
     k = torch.randn((nb, bs, Hkv, D), generator=g, device=device).bfloat16()
     v = torch.randn((nb, bs, Hkv, D), generator=g, device=device).bfloat16()
     bt = rng.permutation(nb - 1)[:B * n_pages].reshape(B, n_pages)
-    ctx = np.linspace(1, n_pages * bs, B).astype(np.int64)
-    ctx[0] = 0
-    bt[B - 1] = nb - 1
-    ctx[B - 1] = 1
+    if ctx_range is not None:
+        ctx = np.linspace(*ctx_range, B).astype(np.int64)
+    else:
+        ctx = np.linspace(1, n_pages * bs, B).astype(np.int64)
+        ctx[0] = 0
+        bt[B - 1] = nb - 1
+        ctx[B - 1] = 1
     return dict(q=q, k=k, v=v, scale=D ** -0.5,
                 bt=torch.from_numpy(bt.astype(np.int32)).to(device),
                 ctx=torch.from_numpy(ctx.astype(np.int32)).to(device),
@@ -743,6 +752,18 @@ def check_engine(eng, convs, swaps) -> dict:
             "prefill_chunks": eng.runner.stats.prefill_chunks}
 
 
+def ops_named(events, part: str) -> dict:
+    """{full name: [count, device ms]} of the profiler device events
+    whose name holds ``part``."""
+    out = {}
+    for e in events:
+        if part in e.name:
+            n_ms = out.setdefault(e.name, [0, 0.0])
+            n_ms[0] += 1
+            n_ms[1] += (e.time_range.end - e.time_range.start) / 1e3
+    return out
+
+
 def busy_seconds(spans) -> float:
     """Length of the union of (start, end) intervals in µs, in seconds."""
     busy, end = 0.0, -math.inf
@@ -774,11 +795,17 @@ def profile_engine(bundle, convs, **sizes) -> dict:
         n_us[0] += 1
         n_us[1] += e.time_range.end - e.time_range.start
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    paged = ops_named(dev, "paged_attention")
+    if not paged:
+        raise AssertionError("no paged-attention kernel in the profile")
     return {"wall_s": wall, "device_busy_s": busy,
             "device_idle_share": 1.0 - busy / wall,
             "device_ops": len(dev), "decode_steps": eng.runner.stats.steps,
             "top_device_ops": [{"name": n, "count": c, "ms": us / 1e3}
-                               for n, (c, us) in top]}
+                               for n, (c, us) in top],
+            "paged_attention_ops": [{"name": n, "count": c, "ms": ms}
+                                    for n, (c, ms) in paged.items()],
+            "paged_attention_ms": sum(ms for _, ms in paged.values())}
 
 
 # ---------------------------------------------------------------------------
@@ -865,10 +892,17 @@ def main() -> int:
     attn = {}
     for B, n_pages in ((8, 64), (8, 128), (32, 128)):
         case = attention_case(B, n_pages, dev, seed=B + n_pages)
-        attn[(B, n_pages)] = (case, check_attention(case))
-    timed = attn[(32, 128)][0]
+        attn[f"B{B}_pages{n_pages}"] = (case, check_attention(case))
+    # the engine's decode bucket: batch 8, 64 pages, contexts 256-600
+    engine_case = attention_case(8, 64, dev, seed=1, ctx_range=(256, 600))
+    attn["B8_pages64_ctx256_600"] = (engine_case,
+                                     check_attention(engine_case))
+    timed = attn["B32_pages128"][0]
     a_times = time_attention(timed, flush)
     a_bytes, a_flops = attention_work(timed)
+    a_engine_times = time_attention(engine_case, flush)
+    a_bounds = {k: bound_ms(*attention_work(attn[k][0]))[0]
+                for k in ("B32_pages128", "B8_pages64_ctx256_600")}
     copies = copy_case(dev, seed=1)
     slab, dst_runs = check_copies(copies)
     gather_t, scatter_t, c_bytes = time_copies(copies, dst_runs, flush)
@@ -886,15 +920,17 @@ def main() -> int:
     gla_in = gla_case(dev, seed=3)
     gla_out, gla_err = check_gla(gla_in)
     gla_t = time_gla(gla_in, flush)
-    all_timed = {"paged_attention": a_times, "block_gather_runs": gather_t,
+    all_timed = {"paged_attention_B32_pages128": a_times,
+                 "paged_attention_B8_pages64": a_engine_times,
+                 "block_gather_runs": gather_t,
                  "block_scatter_runs": scatter_t,
                  **{k: t for k, (t, _) in block_t.items()},
                  **{f"flash_attention_B{B}_T{T_len}": f["times"]
                     for (B, T_len), f in flash.items()},
                  "gla_scan_scalar": gla_t}
     emit("kernels",
-         paged_attention={f"B{B}_pages{P}": err
-                          for (B, P), (_, err) in attn.items()},
+         paged_attention={k: err for k, (_, err) in attn.items()},
+         paged_attention_bound_ms=a_bounds,
          attention_tolerance={"atol": ATTN_ATOL, "rtol": ATTN_RTOL},
          run_copies="byte-equal",
          block_copies="byte-equal with their plain versions and the "

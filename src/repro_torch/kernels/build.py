@@ -107,7 +107,7 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # each source's C entry points: name -> (argument types, result type)
 SIGNATURES = {
     "paged_attention": {
-        "fs_paged_attention_bf16": ([_P] * 6 + [_I] * 8 + [_F, _P], _I)},
+        "fs_paged_attention_bf16": ([_P] * 7 + [_I] * 10 + [_F, _P], _I)},
     "block_copy": {
         "fs_copy_runs": ([_P] * 5 + [_I] * 3 + [_LL] * 3 + [_P, _P], _I),
         "fs_copy_blocks": ([_P] * 4 + [_I] + [_LL] * 3 + [_P, _P], _I)},

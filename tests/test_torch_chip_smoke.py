@@ -286,3 +286,38 @@ def test_refuses_without_gpu_and_outside_a_checkout(tmp_path):
                            timeout=120)
     assert alone.returncode != 0
     assert '"ok"' not in alone.stdout
+
+
+def test_engine_attention_case_holds_the_engine_bucket():
+    """The engine's decode bucket for phases 3 and 6: B 8 over 64 pages of
+    16, contexts spread over 256-600, no ctx-0 or trash row; its bytes are
+    the walked K and V with q, the output and the table, bound by bytes."""
+    case = chip_smoke.attention_case(8, 64, torch.device("cpu"), seed=1,
+                                     ctx_range=(256, 600))
+    ctx = case["ctx"].tolist()
+    assert ctx[0] == 256 and ctx[-1] == 600 and ctx == sorted(ctx)
+    assert int(case["bt"].max()) < case["k"].shape[0] - 1
+    nbytes, flops = chip_smoke.attention_work(case)
+    walked = sum(ctx)
+    assert nbytes == (walked * 2 * 128 * 4 + 2 * 8 * 12 * 128 * 2
+                      + 8 * 64 * 4 + 8 * 4)
+    assert flops == 4 * walked * 12 * 128
+    assert chip_smoke.bound_ms(nbytes, flops)[1] == "bytes"
+    args = [case[n] for n in ("q", "k", "v", "bt", "ctx", "scale", "ppcb")]
+    out = pa.paged_attention(*args)
+    assert out.shape == (8, 12, 128) and bool(torch.isfinite(out).all())
+
+
+def test_ops_named_sums_the_paged_attention_kernels():
+    from types import SimpleNamespace as NS
+
+    def ev(name, start, end):
+        return NS(name=name, time_range=NS(start=start, end=end))
+    events = [ev("paged_attention_split_kernel", 0.0, 5.0),
+              ev("nvjet_gemm", 5.0, 50.0),
+              ev("paged_attention_combine_kernel", 50.0, 52.0),
+              ev("paged_attention_split_kernel", 60.0, 66.0)]
+    assert chip_smoke.ops_named(events, "paged_attention") == {
+        "paged_attention_split_kernel": [2, pytest.approx(0.011)],
+        "paged_attention_combine_kernel": [1, pytest.approx(0.002)]}
+    assert chip_smoke.ops_named(events, "flash") == {}

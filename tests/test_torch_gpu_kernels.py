@@ -95,6 +95,153 @@ def test_paged_attention_kernel_refuses_fp32(cuda):
                            0.125)
 
 
+def _plan(B, Hkv, n_pages, bs, ppcb):
+    """(n_splits, chunk, padded table tokens) of the kernel's launch."""
+    n_tab = pa._padded_pages(n_pages, ppcb) * bs
+    return (*pa.split_plan(B, Hkv, n_tab, bs, pa._sm_count(0)), n_tab)
+
+
+def _edges(B, ch, tab):
+    """Rows ending on a chunk edge and one token past it, up to the
+    table's end."""
+    ctxs = []
+    for k in range(1, tab // ch + 1):
+        ctxs += [k * ch, k * ch + 1]
+    return (ctxs * B)[:B - 1] + [tab - 1]
+
+
+# name: (B, group, Hkv, bs, n_pages, ppcb, contexts from (rng, B, chunk,
+# padded table), whether the plan must split)
+SPLIT_CASES = {
+    "engine_B8_pages64": (8, 6, 2, 16, 64, 4,
+                          lambda rng, B, ch, tab: rng.integers(256, 601, B),
+                          True),
+    "chunk_edges_B8": (8, 6, 2, 16, 128, 4,
+                       lambda rng, B, ch, tab: _edges(B, ch, tab), True),
+    "chunk_edges_B32": (32, 6, 2, 16, 128, 4,
+                        lambda rng, B, ch, tab: _edges(B, ch, tab), True),
+    "ctx0_many_splits": (4, 6, 2, 16, 64, 4,
+                         lambda rng, B, ch, tab: [0, 0, 300, 0], True),
+    "ctx_past_table": (4, 6, 2, 16, 7, 4,
+                       lambda rng, B, ch, tab: [200, 10 ** 6, tab - 15, 0],
+                       True),
+    "only_first_split": (8, 6, 2, 16, 128, 4,
+                         lambda rng, B, ch, tab: [1, ch, ch - 1, 17, 2, ch,
+                                                  30, 63], True),
+    "short_rows_many_splits": (16, 6, 2, 16, 128, 4,
+                               lambda rng, B, ch, tab: range(1, B + 1), True),
+    "group1": (6, 1, 2, 16, 32, 4,
+               lambda rng, B, ch, tab: [0, 1, 77, 300, 512, 65], True),
+    "group4": (6, 4, 2, 16, 32, 4,
+               lambda rng, B, ch, tab: [0, 1, 77, 300, 512, 65], True),
+    "group6": (6, 6, 2, 16, 32, 4,
+               lambda rng, B, ch, tab: [0, 1, 77, 300, 512, 65], True),
+    "group8": (6, 8, 2, 16, 32, 4,
+               lambda rng, B, ch, tab: [0, 1, 77, 300, 512, 65], True),
+    "bs32": (6, 6, 2, 32, 32, 4,
+             lambda rng, B, ch, tab: [0, 1, 77, 300, 1024, 1023], True),
+    "ppcb1": (5, 6, 2, 16, 7, 1,
+              lambda rng, B, ch, tab: [0, 1, 64, 112, 113], True),
+    "ppcb2": (5, 6, 2, 16, 7, 2,
+              lambda rng, B, ch, tab: [0, 1, 64, 112, 113], True),
+    "ppcb4": (5, 6, 2, 16, 7, 4,
+              lambda rng, B, ch, tab: [0, 1, 64, 112, 113], True),
+    "one_split_fills_the_card": (200, 6, 2, 16, 8, 4,
+                                 lambda rng, B, ch, tab:
+                                 rng.integers(0, 129, B), False),
+}
+
+
+@pytest.mark.parametrize("name", list(SPLIT_CASES))
+def test_paged_attention_split_kv_matches_plain(cuda, name):
+    """The split-KV kernel at the partitions its edges meet: the engine's
+    bucket (B 8, 64 pages, contexts 256-600), rows ending on a chunk edge
+    and one token past it, ctx 0 (the uniform mean of V from every split),
+    ctx past the table (the padding page 0 read), rows whose every split
+    but the first is empty, rows of 1-16 tokens over 32 splits, groups 1,
+    4, 6 and 8, pages of 16 and 32, page tiles 1, 2 and 4, and one split
+    where the rows fill the card (the kernel writes bf16 itself)."""
+    B, G, Hkv, bs, n_pages, ppcb, ctx_of, splits = SPLIT_CASES[name]
+    n_splits, chunk, tab = _plan(B, Hkv, n_pages, bs, ppcb)
+    assert (n_splits > 1) == splits
+    rng = np.random.default_rng(len(name))
+    ctxs = np.asarray(list(ctx_of(rng, B, chunk, tab)), np.int32)
+    q, k, v, bt, ctx = _attention_case(rng, B, G * Hkv, Hkv, 128, bs,
+                                       n_pages, ctxs)
+    qd, kd, vd = _to(cuda, q, k, v)
+    btd, ctxd = _to(cuda, bt, ctx, dtype=torch.int32)
+    before = pa.paged_attention.launches
+    out = pa.paged_attention(qd, kd, vd, btd, ctxd, 128 ** -0.5, ppcb)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches == before + 1
+    ref = pa.paged_attention_plain(qd, kd, vd, btd, ctxd, 128 ** -0.5, ppcb)
+    torch.testing.assert_close(out.float(), ref.float(), atol=ATOL,
+                               rtol=RTOL)
+
+
+@pytest.mark.parametrize("B,n_pages", [(4, 3), (8, 64)])
+def test_paged_attention_kernel_follows_the_tpu_index_rule(cuda, B, n_pages):
+    """Table ids outside [0, nb) on a 6-block pool: -3 reads block 3, 9
+    block 5, -9 block 0, as the reference's index map and the plain
+    version read them."""
+    rng = np.random.default_rng(B)
+    nb, bs, Hq, Hkv, D = 6, 16, 12, 2, 128
+    q = rng.standard_normal((B, Hq, D)).astype(np.float32)
+    k = rng.standard_normal((nb, bs, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((nb, bs, Hkv, D)).astype(np.float32)
+    bt = rng.choice(np.array([-3, -9, 9, 2, -1, 0], np.int32), (B, n_pages))
+    ctx = rng.integers(0, n_pages * bs + 20, B).astype(np.int32)
+    ctx[0] = 0
+    qd, kd, vd = _to(cuda, q, k, v)
+    btd, ctxd = _to(cuda, bt, ctx, dtype=torch.int32)
+    out = pa.paged_attention(qd, kd, vd, btd, ctxd, D ** -0.5, 4)
+    ref = pa.paged_attention_plain(qd, kd, vd, btd, ctxd, D ** -0.5, 4)
+    torch.testing.assert_close(out.float(), ref.float(), atol=ATOL,
+                               rtol=RTOL)
+
+
+def test_paged_attention_kernel_is_deterministic(cuda):
+    """Two launches on the same inputs are bit-equal: the splits merge in
+    a fixed order, with no float atomics."""
+    rng = np.random.default_rng(32)
+    ctxs = np.linspace(0, 2048, 32).astype(np.int32)
+    q, k, v, bt, ctx = _attention_case(rng, 32, 12, 2, 128, 16, 128, ctxs)
+    args = (*_to(cuda, q, k, v), *_to(cuda, bt, ctx, dtype=torch.int32))
+    assert _plan(32, 2, 128, 16, 4)[0] > 1
+    a = pa.paged_attention(*args, 128 ** -0.5, 4)
+    b = pa.paged_attention(*args, 128 ** -0.5, 4)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+def _sass_kernels(name):
+    """{kernel name: whether its SASS holds HMMA} of a built library."""
+    import re
+    import shutil
+    import subprocess
+    from pathlib import Path
+
+    from repro_torch.kernels import build
+    lib = build.build([name])[name].path
+    tool = Path(build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool if tool.exists() else
+                               shutil.which("cuobjdump")), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    return {n: "HMMA" in body for n, body in
+            re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)", sass,
+                       flags=re.S)}
+
+
+def test_paged_attention_kernel_runs_on_the_tensor_cores(cuda):
+    """The built paged-attention library, disassembled: the split kernel
+    holds HMMA (tensor-core) instructions; the combine kernel is there."""
+    kernels = _sass_kernels("paged_attention")
+    split = [n for n in kernels if "paged_attention_split_kernel" in n]
+    combine = [n for n in kernels if "paged_attention_combine_kernel" in n]
+    assert len(split) == 1 and len(combine) == 1, sorted(kernels)
+    assert kernels[split[0]]
+
+
 @pytest.mark.parametrize("runs", [
     [(3, 5), (20, 1), (9, 7)],        # 3 runs -> 1 zero-length pad run
     [(0, 16)],
@@ -276,21 +423,7 @@ def test_flash_attention_kernel_matches_plain(cuda, B, H, T, S, D, causal,
 def test_flash_attention_bf16_kernel_runs_on_the_tensor_cores(cuda):
     """The built flash library, disassembled: the bf16 kernels hold
     HMMA (tensor-core) instructions, the fp32 kernels none."""
-    import re
-    import shutil
-    import subprocess
-    from pathlib import Path
-
-    from repro_torch.kernels import build
-    lib = build.build(["flash_attention"])["flash_attention"].path
-    tool = Path(build.nvcc_path()).parent / "cuobjdump"
-    sass = subprocess.run([str(tool if tool.exists() else
-                               shutil.which("cuobjdump")), "-sass", str(lib)],
-                          capture_output=True, text=True, check=True).stdout
-    kernels = {}
-    for name, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)",
-                                 sass, flags=re.S):
-        kernels[name] = "HMMA" in body
+    kernels = _sass_kernels("flash_attention")
     bf16 = [n for n in kernels if "flash_mma_kernel" in n]
     fp32 = [n for n in kernels if "flash_kernel" in n]
     assert len(bf16) == 2 and len(fp32) == 2, sorted(kernels)
@@ -363,13 +496,19 @@ def test_wrappers_never_fall_back_to_the_plain_version(cuda, monkeypatch):
     glw = -torch.exp(torch.randn((1, 2, 128), generator=g, device=cuda)
                      * 0.5 - 1.0)
     want_y, want_s = gla.gla_scan_scalar_plain(gq, gk, gv, glw)
+    a_rng = np.random.default_rng(3)
+    a_np = _attention_case(a_rng, 4, 12, 2, 128, 16, 32, [0, 5, 300, 512])
+    attn = (*_to(cuda, *a_np[:3]), *_to(cuda, *a_np[3:], dtype=torch.int32),
+            128 ** -0.5, 4)
+    want_pa = pa.paged_attention_plain(*attn)
 
     def refuse(*a, **k):
         raise AssertionError("a CUDA tensor reached the plain version")
     for mod, name in ((bc, "block_copy_plain"),
                       (bc, "block_copy_grouped_plain"),
                       (fa, "flash_attention_plain"),
-                      (gla, "gla_scan_scalar_plain")):
+                      (gla, "gla_scan_scalar_plain"),
+                      (pa, "paged_attention_plain")):
         monkeypatch.setattr(mod, name, refuse)
     out = ops.copy_blocks(src, dst.clone(), si, di)
     assert _bytes_equal(out, want_copy)
@@ -382,3 +521,5 @@ def test_wrappers_never_fall_back_to_the_plain_version(cuda, monkeypatch):
     y, s = ops.gla_scan_scalar(gq, gk, gv, glw)
     torch.testing.assert_close(y, want_y, **GLA_Y_TOL[torch.float32])
     torch.testing.assert_close(s, want_s, **GLA_S_TOL)
+    torch.testing.assert_close(ops.paged_attention(*attn).float(),
+                               want_pa.float(), atol=ATOL, rtol=RTOL)
