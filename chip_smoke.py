@@ -43,14 +43,17 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                wrapper's host time left out.  After the engine phases,
                since a profiler session leaves the CUDA activity tracing
                (CUPTI) attached, which adds host time to every later
-               launch.
+               launch.  A session that comes back without its device
+               events is made again, up to three times
+               (``profiler_sessions_made_again``).
   (profile)  — with ``--profile`` only: one more engine run under
                ``torch.profiler``; the device's idle share of its wall time,
                its operations by device time, and the paged-attention
                kernels' (split and combine) launches and device time.
 
 Then a ``kernels`` line (per kernel: launches on its path, error, times
-around the call and on the device, and bound) and, as the last line,
+around the call and on the device, bound, and the bound's share of the
+device time) and, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
 then not 0 and the last line is not printed.  Imports nothing of JAX or
 of the JAX package.
@@ -127,18 +130,27 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, flush=None) -> float:
     return total / iters
 
 
-def kernel_ms(events, iters: int, skip=frozenset()) -> float:
+def kernel_ms(events, iters: int, skip=frozenset(),
+              skipped_per_call=None) -> float:
     """Mean device ms per call from profiler device events (objects with
     ``name`` and ``time_range.start`` / ``.end`` in µs): the summed
     durations of every event not named in ``skip``, over ``iters`` calls.
     Every call launches the same kernels, so raises where no event is
     left or their count is not a multiple of ``iters`` (events lost or
-    from elsewhere)."""
+    from elsewhere), and, given ``skipped_per_call``, where the events
+    named in ``skip`` are not that many per call (a flush's kernel lost,
+    which could leave a count that still divides)."""
     us = [e.time_range.end - e.time_range.start for e in events
           if e.name not in skip]
+    n_skipped = len(events) - len(us)
     if not us or len(us) % iters:
         raise AssertionError(f"the profiler recorded {len(us)} device "
                              f"kernels for {iters} calls")
+    if skipped_per_call is not None and \
+            n_skipped != skipped_per_call * iters:
+        raise AssertionError(f"the profiler recorded {n_skipped} flush "
+                             f"kernels for {iters} calls, not "
+                             f"{skipped_per_call} each")
     return sum(us) / 1e3 / iters
 
 
@@ -147,30 +159,63 @@ def _device_events(prof):
     return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
+def remeasured(measure, tries: int = 3):
+    """``measure()``'s first result over at most ``tries`` calls: a call
+    that raises ``AssertionError`` (a profiler session that came back
+    without its device events) is reported on stderr and made again; the
+    last such error is raised when every call failed.  Counts the calls
+    made again in ``remeasured.retries``."""
+    for attempt in range(1, tries + 1):
+        try:
+            return measure()
+        except AssertionError as fault:
+            print(f"device time, attempt {attempt} of {tries}: {fault}",
+                  file=sys.stderr, flush=True)
+            if attempt == tries:
+                raise
+            remeasured.retries += 1
+
+
+remeasured.retries = 0
+
+
 def device_ms(fn, iters: int = 20, warmup: int = 3, flush=None) -> float:
     """Mean device time of ``fn`` in ms: its CUDA kernels' durations under
     ``torch.profiler`` over ``iters`` calls, each after the L2 flush of
     ``time_ms`` (whose own kernels, found in a first profiled flush, are
-    left out), so the wrapper's host time is not counted."""
+    left out), so the wrapper's host time is not counted.  The profiler
+    now and then returns a session with no device event (seen once on an
+    H100 in twenty-odd runs); both sessions are then made again
+    (``remeasured``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     for _ in range(warmup):
         fn()
-    skip = set()
-    if flush is not None:
-        with profile(activities=acts) as prof:
-            flush.zero_()
-            torch.cuda.synchronize()
-        skip = {e.name for e in _device_events(prof)}
-    torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
-        for _ in range(iters):
-            if flush is not None:
+
+    def measure():
+        skip, flushed = set(), []
+        if flush is not None:
+            with profile(activities=acts) as prof:
                 flush.zero_()
-            fn()
+                torch.cuda.synchronize()
+            flushed = _device_events(prof)
+            # with no flush kernel to leave out, the flushes would be
+            # counted as the call's own kernels
+            if not flushed:
+                raise AssertionError("the profiler recorded no device "
+                                     "kernel for the L2 flush")
+            skip = {e.name for e in flushed}
         torch.cuda.synchronize()
-    return kernel_ms(_device_events(prof), iters, skip)
+        with profile(activities=acts) as prof:
+            for _ in range(iters):
+                if flush is not None:
+                    flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        return kernel_ms(_device_events(prof), iters, skip,
+                         len(flushed) if flush is not None else None)
+    return remeasured(measure)
 
 
 def timings(kernel, plain, library, flush) -> dict:
@@ -1005,7 +1050,8 @@ def main() -> int:
     emit("device_times", nvidia_smi=smi[0],
          timed={k: [t["device_ms"], t["library_device_ms"]]
                 for k, t in all_timed.items()},
-         timed_columns=["kernel_device_ms", "library_device_ms"])
+         timed_columns=["kernel_device_ms", "library_device_ms"],
+         profiler_sessions_made_again=remeasured.retries)
     del flush, all_timed
 
     if "--profile" in sys.argv[1:]:
@@ -1053,6 +1099,7 @@ def main() -> int:
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": times["library_ms"],
             "device_ms": times["device_ms"],
+            "bound_share": b_ms / times["device_ms"],
             "library_device_ms": times["library_device_ms"]})
     rows[-1]["library"] = "none: no single PyTorch call computes the scan"
     print(json.dumps({"kernels": rows}), flush=True)

@@ -12,9 +12,15 @@ all in fp32.  q, k: (B, H, T, N); v: (B, H, T, P); logw: (B, H, T), <= 0.
 Returns y (B, H, T, P) in q's dtype and the final state (B, H, N, P) in
 fp32.  On a CPU tensor the wrapper computes the plain version; on a CUDA
 tensor it launches ``csrc/gla_scan.cu`` (fp32 or bf16; N, P and chunk
-multiples of 4 whose chunk tiles fit in shared memory) or raises.
+multiples of 4 whose tiles fit in shared memory) or raises.  The launch
+(``launch_plan``): bf16 with N at most 128 and chunk at most 64 runs on
+the tensor cores, one CTA of 16 warps per (batch, head) and slice of up to
+64 columns of P; the rest on the fp32 pipes, one CTA per (batch, head) and
+16 columns of P.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -60,11 +66,53 @@ def gla_scan_scalar_plain(q, k, v, logw, *, chunk: int = 64):
     return torch.cat(ys, dim=2), S
 
 
-def smem_bytes(N: int, P: int, chunk: int) -> int:
-    """Shared memory the kernel's CTA needs (``smem_bytes`` in
+MMA_MAX_N, MMA_MAX_CHUNK = 128, 64
+FMA_P_SPLIT = 16             # P columns per CTA of the fp32-pipe kernel
+_STAGES, _WARPS = 3, 16
+_TERMS_A = _TERMS_S = _TERMS_W = 3
+
+
+class Plan(NamedTuple):
+    route: str               # "mma" (tensor cores) or "fma" (fp32 pipes)
+    pt: int                  # P columns per CTA
+    p_splits: int            # CTAs per (batch, head)
+    smem: int                # shared bytes per CTA
+
+
+def _align1k(n: int) -> int:
+    return -(-n // 1024) * 1024
+
+
+def _mma_smem(N: int, chunk: int, pt: int) -> int:
+    """``mma_layout(N, C, pt).total`` of ``csrc/gla_scan.cu``."""
+    n_pad = 16                                   # 16 times a power of two
+    while n_pad < N:
+        n_pad *= 2
+    c_pad = -(-chunk // 16) * 16
+    mt = c_pad // 16
+    stage = _align1k(2 * _align1k(c_pad * n_pad * 2)
+                     + _align1k(c_pad * pt * 2) + c_pad * 4)
+    return (_STAGES * stage + 2 * _TERMS_S * pt * n_pad * 2
+            + 2 * _TERMS_W * c_pad * pt * 2
+            + 2 * mt * (mt + 1) // 2 * _TERMS_A * 512
+            + _WARPS * c_pad * 4 + 2 * c_pad * 4 + _STAGES * 8 + 1024)
+
+
+def launch_plan(N: int, P: int, chunk: int, bf16: bool) -> Plan:
+    """The kernel launch for these shapes, from shapes alone: the route,
+    the P slice of a CTA, the CTAs per (batch, head) and the shared memory
+    a CTA needs (``mma_pt``, ``mma_layout`` and ``fma_smem_bytes`` in
     ``csrc/gla_scan.cu``)."""
-    return 4 * (chunk * N + N * (chunk + 4) + chunk * P + chunk * chunk
-                + N * P + 2 * chunk)
+    if bf16 and N <= MMA_MAX_N and chunk <= MMA_MAX_CHUNK:
+        pt = 64
+        while pt > 16 and (pt // 2 >= P
+                           or _mma_smem(N, chunk, pt) > MAX_SMEM_BYTES):
+            pt //= 2
+        return Plan("mma", pt, -(-P // pt), _mma_smem(N, chunk, pt))
+    pw = min(P, FMA_P_SPLIT)
+    return Plan("fma", FMA_P_SPLIT, -(-P // FMA_P_SPLIT),
+                4 * (chunk * N + N * (chunk + 4) + chunk * pw + chunk * chunk
+                     + N * pw + 2 * chunk))
 
 
 def _check_cuda_args(q, k, v, logw, chunk: int):
@@ -81,10 +129,17 @@ def _check_cuda_args(q, k, v, logw, chunk: int):
     if N % 4 or P % 4 or chunk % 4:
         raise ValueError(f"gla_scan_scalar: the CUDA kernel takes N {N}, P "
                          f"{P} and chunk {chunk} as multiples of 4")
-    if smem_bytes(N, P, chunk) > MAX_SMEM_BYTES:
+    smem = launch_plan(N, P, chunk, q.dtype == torch.bfloat16).smem
+    if smem > MAX_SMEM_BYTES:
         raise ValueError(f"gla_scan_scalar: N {N}, P {P}, chunk {chunk} need "
-                         f"{smem_bytes(N, P, chunk)} B of shared memory, "
-                         f"more than {MAX_SMEM_BYTES}")
+                         f"{smem} B of shared memory, more than "
+                         f"{MAX_SMEM_BYTES}")
+
+
+def _aligned(t):
+    """``t``, or a copy of it where its data is not 16-byte aligned (the
+    kernel copies 16-byte chunks)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def gla_scan_scalar(q, k, v, logw, *, chunk: int = 64):
@@ -105,7 +160,8 @@ def gla_scan_scalar(q, k, v, logw, *, chunk: int = 64):
         return y, torch.zeros((B, H, N, P), dtype=torch.float32,
                               device=q.device)
     S = torch.empty((B, H, N, P), dtype=torch.float32, device=q.device)
-    lw = logw.to(torch.float32).contiguous()
+    q, k, v = (_aligned(t) for t in (q, k, v))
+    lw = _aligned(logw.to(torch.float32).contiguous())
     lib = build.library("gla_scan")
     code = lib.fs_gla_scan_scalar(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),

@@ -255,6 +255,50 @@ def test_kernel_ms_reduces_profiler_device_events():
         chip_smoke.kernel_ms(events[:2], 2, {"flush_fill"})
 
 
+def test_kernel_ms_raises_where_a_flush_kernel_was_lost():
+    """Given the flush's kernels per call, a session that lost one flush
+    kernel is an error even where the call's own kernels still divide;
+    the whole session gives the mean as without the count."""
+    from types import SimpleNamespace as NS
+
+    def ev(name, start, end):
+        return NS(name=name, time_range=NS(start=start, end=end))
+    events = [ev("flush_fill", 0.0, 900.0), ev("flash_mma", 900.0, 960.0),
+              ev("flush_fill", 1000.0, 1900.0),
+              ev("flash_mma", 1900.0, 1980.0)]
+    assert chip_smoke.kernel_ms(events, 2, {"flush_fill"}, 1) == \
+        pytest.approx((60 + 80) / 1e3 / 2)
+    with pytest.raises(AssertionError, match="recorded 1 flush kernels"):
+        chip_smoke.kernel_ms(events[1:], 2, {"flush_fill"}, 1)
+    with pytest.raises(AssertionError, match="recorded 2 flush kernels"):
+        chip_smoke.kernel_ms(events, 2, {"flush_fill"}, 2)
+
+
+def test_remeasured_makes_a_lost_session_again_and_raises_the_last():
+    """A measurement that raises ``AssertionError`` (a profiler session
+    without its device events) is made again; the first result is kept;
+    when every try fails, the last error is raised, not a number."""
+    results = iter([AssertionError("recorded 0 device kernels"),
+                    AssertionError("recorded 3 device kernels"), 0.25])
+
+    def measure():
+        r = next(results)
+        if isinstance(r, Exception):
+            raise r
+        return r
+    before = chip_smoke.remeasured.retries
+    assert chip_smoke.remeasured(measure, tries=3) == 0.25
+    assert chip_smoke.remeasured.retries == before + 2
+
+    def lost():
+        raise AssertionError(f"recorded 0 device kernels, call {next(n)}")
+    n = iter(range(3))
+    with pytest.raises(AssertionError, match="call 1"):
+        chip_smoke.remeasured(lost, tries=2)
+    with pytest.raises(ValueError):
+        chip_smoke.remeasured(lambda: int("x"), tries=3)
+
+
 def test_gla_bounds_pass_one_ulp_and_fail_a_skipped_chunk():
     """The scan check's bounds on zamba2-7b's head shape (2 heads, T 512
     on the CPU): y one bf16 ulp up passes; a scan that drops one chunk's

@@ -447,21 +447,41 @@ GLA_Y_TOL = {torch.float32: dict(atol=2e-5, rtol=1e-5),
 GLA_S_TOL = dict(atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("B,H,T,N,P,chunk", [
+# (B, H, T, N, P, chunk) of the scan's card tests; the launch plan of each
+# is checked on the CPU (tests/test_torch_kernel_ops.py)
+GLA_SHAPES = [
     (1, 1, 64, 8, 8, 16),         # tests/test_kernels.py's shapes
     (2, 3, 128, 16, 32, 32),
     (1, 2, 96, 32, 16, 32),
     (2, 1, 64, 64, 64, 64),
     (1, 4, 1024, 64, 64, 64),     # zamba2-7b's SSD head at a shorter T
-])
+    (1, 2, 64, 4, 12, 16),        # N 4, P 12: multiples of 4, not of 8
+    (1, 2, 128, 32, 24, 32),      # P 24: a ragged 16-wide P slice
+    (1, 8, 256, 64, 64, 64),      # 32 CTAs, fewer than the 132 SMs
+    (2, 40, 256, 64, 64, 64),     # 320 CTAs
+    (1, 4, 512, 64, 64, 16),      # chunk 16 and 32 at N = P = 64
+    (1, 4, 512, 64, 64, 32),
+    (1, 2, 256, 128, 64, 64),     # N at the tensor-core limit
+    (1, 2, 256, 128, 64, 128),    # chunk past 64: bf16 on the fp32 pipes
+    (1, 2, 120, 96, 40, 20),      # padded tile rows and chunk rows
+    (1, 1, 64, 160, 8, 16),       # N past 128: bf16 on the fp32 pipes
+]
+
+
+def _gla_inputs(dev, B, H, T, N, P, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = (torch.randn((B, H, T, N), generator=g, device=dev) * 0.5).to(dtype)
+    k = (torch.randn((B, H, T, N), generator=g, device=dev) * 0.5).to(dtype)
+    v = (torch.randn((B, H, T, P), generator=g, device=dev) * 0.5).to(dtype)
+    logw = -torch.exp(torch.randn((B, H, T), generator=g, device=dev)
+                      * 0.5 - 1.0)
+    return q, k, v, logw
+
+
+@pytest.mark.parametrize("B,H,T,N,P,chunk", GLA_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gla_scan_kernel_matches_plain(cuda, B, H, T, N, P, chunk, dtype):
-    g = torch.Generator(device=cuda).manual_seed(T + N + P)
-    q = (torch.randn((B, H, T, N), generator=g, device=cuda) * 0.5).to(dtype)
-    k = (torch.randn((B, H, T, N), generator=g, device=cuda) * 0.5).to(dtype)
-    v = (torch.randn((B, H, T, P), generator=g, device=cuda) * 0.5).to(dtype)
-    logw = -torch.exp(torch.randn((B, H, T), generator=g, device=cuda)
-                      * 0.5 - 1.0)
+    q, k, v, logw = _gla_inputs(cuda, B, H, T, N, P, dtype, T + N + P)
     before = gla.gla_scan_scalar.launches
     y, s = ops.gla_scan_scalar(q, k, v, logw, chunk=chunk)
     torch.cuda.synchronize()
@@ -470,6 +490,45 @@ def test_gla_scan_kernel_matches_plain(cuda, B, H, T, N, P, chunk, dtype):
     assert y.dtype == dtype and s.dtype == torch.float32
     torch.testing.assert_close(y.float(), want_y.float(), **GLA_Y_TOL[dtype])
     torch.testing.assert_close(s, want_s, **GLA_S_TOL)
+
+
+@pytest.mark.parametrize("logw_value", [0.0, -30.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gla_scan_kernel_decay_edges(cuda, logw_value, dtype):
+    """No decay (logw 0: the state sums every step of T 1024 and grows)
+    and a decay whose every exponent underflows (logw -30: each chunk
+    keeps only its last step's state, A only its diagonal), at zamba2-7b's
+    head shape, against the plain version."""
+    q, k, v, _ = _gla_inputs(cuda, 1, 4, 1024, 64, 64, dtype, 7)
+    logw = torch.full((1, 4, 1024), logw_value, device=cuda)
+    y, s = ops.gla_scan_scalar(q, k, v, logw, chunk=64)
+    want_y, want_s = gla.gla_scan_scalar_plain(q, k, v, logw, chunk=64)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y.float()).all() and torch.isfinite(s).all()
+    torch.testing.assert_close(y.float(), want_y.float(), **GLA_Y_TOL[dtype])
+    torch.testing.assert_close(s, want_s, **GLA_S_TOL)
+
+
+def test_gla_scan_kernel_is_deterministic(cuda):
+    """Two launches on the same inputs are bit-equal: every sum runs in a
+    fixed order, with no atomics."""
+    args = _gla_inputs(cuda, 1, 8, 512, 64, 64, torch.bfloat16, 5)
+    y1, s1 = gla.gla_scan_scalar(*args, chunk=64)
+    y2, s2 = gla.gla_scan_scalar(*args, chunk=64)
+    torch.cuda.synchronize()
+    assert torch.equal(y1.view(torch.int16), y2.view(torch.int16))
+    assert torch.equal(s1.view(torch.int32), s2.view(torch.int32))
+
+
+def test_gla_scan_bf16_kernel_runs_on_the_tensor_cores(cuda):
+    """The built scan library, disassembled: the four instances of the
+    bf16 kernel (N padded to 16, 32, 64, 128) hold HMMA (tensor-core)
+    instructions; the fp32-pipe kernel is there for fp32 and bf16 alike."""
+    kernels = _sass_kernels("gla_scan")
+    mma = [n for n in kernels if "gla_scan_mma_kernel" in n]
+    fma = [n for n in kernels if "gla_scan_fma_kernel" in n]
+    assert len(mma) == 4 and len(fma) == 2, sorted(kernels)
+    assert all(kernels[n] for n in mma)
 
 
 def test_wrappers_never_fall_back_to_the_plain_version(cuda, monkeypatch):

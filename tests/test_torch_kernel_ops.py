@@ -6,6 +6,8 @@ reference's Pallas kernels run in interpret mode, as its own tests run
 them, on the parameter grids of ``tests/test_kernels.py``.  Inputs are
 made with numpy from a seed and handed to both.
 """
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -375,6 +377,137 @@ def test_gla_scan_ref_rwkv_mode_matches_reference():
                                rtol=1e-5)
     np.testing.assert_allclose(s.numpy(), np.asarray(want_s), atol=1e-5,
                                rtol=1e-5)
+
+
+def _split_sum(x, n_terms):
+    """x fed to the tensor cores as ``n_terms`` bf16 terms (hi = bf16(x),
+    then bf16 of each residue), summed smallest first as the kernel's MMAs
+    accumulate them; ``None``: x kept in fp32."""
+    if n_terms is None:
+        return x
+    terms, rest = [], x
+    for _ in range(n_terms):
+        terms.append(rest.bfloat16().float())
+        rest = rest - terms[-1]
+    return sum(terms[::-1])
+
+
+def _gla_emulated(q, k, v, logw, chunk, terms):
+    """The bf16 CUDA kernel's decomposition of the scan, in fp32 on the
+    CPU: one 16-wide slice of P at a time, y = exp(L) (q S) + A v and S <-
+    exp(L_C) S + k^T V_w with V_w = v * exp(L_C - L), where A, S and V_w
+    enter their products as ``terms["A"]``, ``terms["S"]`` and
+    ``terms["W"]`` bf16 terms; q, k, v are bf16-exact."""
+    B, H, T, N = q.shape
+    P = v.shape[-1]
+    tril = torch.ones(chunk, chunk, dtype=torch.bool).tril()
+    ys, states = [], []
+    for p0 in range(0, P, 16):
+        vs = v[..., p0:p0 + 16].float()
+        S = torch.zeros(B, H, N, vs.shape[-1])
+        parts = []
+        for c0 in range(0, T, chunk):
+            qc, kc = (x[:, :, c0:c0 + chunk].float() for x in (q, k))
+            vc = vs[:, :, c0:c0 + chunk]
+            L = torch.cumsum(logw[:, :, c0:c0 + chunk].float(), -1)
+            inter = qc @ _split_sum(S, terms["S"])
+            A = (qc @ kc.transpose(-1, -2)) * torch.exp(
+                torch.clamp(L[..., :, None] - L[..., None, :], max=0.0))
+            A = torch.where(tril, A, 0.0)
+            parts.append((torch.exp(L)[..., None] * inter
+                          + _split_sum(A, terms["A"]) @ vc).to(q.dtype))
+            L_C = L[..., -1:]
+            vw = vc * torch.exp(L_C - L)[..., None]
+            S = torch.exp(L_C)[..., None] * S \
+                + kc.transpose(-1, -2) @ _split_sum(vw, terms["W"])
+        ys.append(torch.cat(parts, 2))
+        states.append(S)
+    return torch.cat(ys, -1), torch.cat(states, -1)
+
+
+def test_gla_tolerance_fails_rounded_operands_and_passes_split_operands():
+    """chip_smoke's scan gate (y: GLA_Y_ATOL + 2^-7 |ref|, S: GLA_S_ATOL +
+    GLA_S_RTOL |ref|) at zamba2-7b's head shape (N = P = chunk = 64, 2
+    heads, T 512, chip_smoke.gla_case's inputs): the kernel's
+    decomposition with A, S and V_w each in three bf16 terms passes it, as
+    fp32 operands do; any one of them rounded once to bf16 fails it.  Two
+    terms of A also pass, but flip the bf16 rounding of ~0.2 % of y
+    against fp32 operands; three flip none."""
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+    import chip_smoke
+
+    q, k, v, logw = chip_smoke.gla_case(torch.device("cpu"), 3, H=2, T=512)
+    want_y, want_s = gla.gla_scan_scalar_plain(q, k, v, logw)
+    kernel = dict(A=3, S=3, W=3)
+    y, s = _gla_emulated(q, k, v, logw, 64, kernel)
+    chip_smoke.gla_errors(y, s, want_y, want_s)
+    fp32_y, fp32_s = _gla_emulated(q, k, v, logw, 64,
+                                   dict(A=None, S=None, W=None))
+    chip_smoke.gla_errors(fp32_y, fp32_s, want_y, want_s)
+    for rounded in ("A", "S", "W"):
+        with pytest.raises(AssertionError, match="max abs error"):
+            chip_smoke.gla_errors(*_gla_emulated(
+                q, k, v, logw, 64, {**kernel, rounded: 1}), want_y, want_s)
+    two_a, _ = _gla_emulated(q, k, v, logw, 64, {**kernel, "A": 2})
+    assert float((two_a != fp32_y).float().mean()) > 1e-3
+    assert float((y != fp32_y).float().mean()) < 1e-4
+
+
+def test_gla_launch_plan_tiles_p_and_fits_shared_memory():
+    """For every shape of the scan's card tests and zamba2-7b's: the CTAs
+    of a (batch, head) cover P with whole slices of 16, 32 or 64 columns
+    (the last one ragged at most, none wider than P needs), bf16 takes the
+    tensor cores where N is at most 128 and chunk at most 64, and every
+    CTA's shared memory fits the card; at zamba2-7b's shape one CTA a head
+    (112 CTAs, one wave on 132 SMs).  The plan's constants are the CUDA
+    source's."""
+    import re
+    import sys
+
+    from repro_torch.kernels import build
+    sys.path.insert(0, os.path.dirname(__file__))
+    from test_torch_gpu_kernels import GLA_SHAPES
+
+    consts = dict((n, int(x)) for n, x in re.findall(
+        r"constexpr int (\w+) = (\d+);",
+        (build.CSRC / build.SOURCES["gla_scan"]).read_text()))
+    assert (consts["kMaxN"], consts["kMaxC"], consts["kMaxSmem"],
+            consts["kFmaPt"]) == (gla.MMA_MAX_N, gla.MMA_MAX_CHUNK,
+                                  gla.MAX_SMEM_BYTES, gla.FMA_P_SPLIT)
+    assert (consts["kStages"], consts["kWarps"], consts["kTermsA"],
+            consts["kTermsS"], consts["kTermsW"]) == \
+        (gla._STAGES, gla._WARPS, gla._TERMS_A, gla._TERMS_S, gla._TERMS_W)
+    for B, H, T, N, P, chunk in GLA_SHAPES + [(1, 112, 4096, 64, 64, 64)]:
+        for bf16 in (False, True):
+            plan = gla.launch_plan(N, P, chunk, bf16)
+            assert plan.pt in (16, 32, 64)
+            assert (plan.p_splits - 1) * plan.pt < P \
+                <= plan.p_splits * plan.pt
+            assert plan.pt == 16 or plan.pt // 2 < P
+            assert plan.route == ("mma" if bf16 and N <= 128 and chunk <= 64
+                                  else "fma")
+            assert 0 < plan.smem <= gla.MAX_SMEM_BYTES
+    assert gla.launch_plan(64, 64, 64, True) == gla.Plan("mma", 64, 1,
+                                                         211_480)
+    assert gla.launch_plan(128, 64, 64, True).pt == 32
+
+
+def test_gla_scan_probe_edits_apply_to_the_kernel_source():
+    """scripts/gla_scan_probe.py builds its variants by text edits of
+    csrc/gla_scan.cu: every edited line is still in the source."""
+    import importlib.util
+
+    from repro_torch.kernels import build
+    spec = importlib.util.spec_from_file_location(
+        "gla_scan_probe", os.path.join(os.path.dirname(__file__), "..",
+                                       "scripts", "gla_scan_probe.py"))
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    src = (build.CSRC / build.SOURCES["gla_scan"]).read_text()
+    for name, edits in probe.VARIANTS.items():
+        for old, _ in edits:
+            assert old in src, (name, old)
 
 
 def test_gla_scan_scalar_refuses_a_ragged_chunk():
