@@ -32,10 +32,17 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                by ``ServingEngine`` in real mode with the fastswitch policy
                and a KV pool small enough to force preemption; every turn
                must finish, every conversation swapped out and back in, no
-               swap copy retried or failed, and every kernel launched.
-               Wall seconds and tokens/s are measured; TTFT/TBT are the
-               engine's simulated clock, modelled by the A10 cost model,
-               and named so.
+               swap copy retried or failed, every kernel launched, and
+               paged attention once per layer per decode step.  Each
+               decode step after a bucket's first replays the bucket's
+               captured CUDA graph (``graphs_captured``, ``graph_replays``,
+               ``eager_steps``).  Wall seconds and tokens/s are measured;
+               TTFT/TBT are the engine's simulated clock, modelled by the
+               A10 cost model, and named so.
+  4a. graphs — in the first (warm-up) engine run, the first replay at every
+               bucket the engine visits is held against an eager step over
+               clones of the same state: next tokens, pool, context
+               lengths and last tokens equal byte for byte.
   5. e2e     — every conversation's greedy tokens against a plain dense
                forward (no pages, plain attention) on the card.
   6. device_times — the device time of each phase-3 kernel and library
@@ -49,7 +56,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
   (profile)  — with ``--profile`` only: one more engine run under
                ``torch.profiler``; the device's idle share of its wall time,
                its operations by device time, and the paged-attention
-               kernels' (split and combine) launches and device time.
+               kernels' (split and combine) launches and device time; the
+               profiler's count of each must equal the wrapper's count,
+               replays included.
 
 Then a ``kernels`` line (per kernel: launches on its path, error, times
 around the call and on the device, bound, and the bound's share of the
@@ -60,6 +69,7 @@ of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -741,6 +751,8 @@ def run_engine(bundle, convs, *, gpu_blocks: int, cpu_blocks: int,
                                                            seed=seed),
                            model_bundle=bundle)
     host = _time_methods([(eng.runner, "decode"),
+                          (eng.runner, "flush"),
+                          (eng.runner, "_scatter_rows"),
                           (eng.runner, "prefill_chunk_compute"),
                           (eng.pools, "copy_out_staged"),
                           (eng.pools, "copy_in_staged")])
@@ -786,6 +798,16 @@ def check_engine(eng, convs, swaps) -> dict:
     if unswapped:
         raise AssertionError(f"conversations {unswapped} were not swapped "
                              f"both ways: {by_conv}")
+    st = eng.runner.stats
+    if st.eager_steps + st.graph_replays != st.steps:
+        raise AssertionError(f"{st.steps} decode steps, {st.eager_steps} "
+                             f"eager and {st.graph_replays} replayed")
+    if not st.graphs_captured == eng.runner.graph_cache_size() \
+            == st.rebuilds == st.eager_steps:
+        raise AssertionError(f"{st.graphs_captured} graphs captured, "
+                             f"{st.rebuilds} bucket rebuilds, "
+                             f"{st.eager_steps} eager steps: one each per "
+                             "bucket")
     return {"turns": sum(len(c.turns) for c in convs),
             "tokens": m.total_tokens, "preemptions": m.preemptions,
             "swap_out_calls": pools.staged_out_calls,
@@ -793,8 +815,52 @@ def check_engine(eng, convs, swaps) -> dict:
             "d2h_transfers": pools.d2h_transfers,
             "h2d_transfers": pools.h2d_transfers,
             "swaps_out_in_by_conv": by_conv, **failures,
-            "decode_steps": eng.runner.stats.steps,
-            "prefill_chunks": eng.runner.stats.prefill_chunks}
+            "decode_steps": st.steps,
+            "graphs_captured": st.graphs_captured,
+            "graph_replays": st.graph_replays, "eager_steps": st.eager_steps,
+            "batch_bucket": eng.runner.batch_bucket,
+            "prefill_chunks": st.prefill_chunks}
+
+
+def _bytes_equal(a, b) -> bool:
+    import torch
+    return torch.equal(a.contiguous().view(torch.uint8),
+                       b.contiguous().view(torch.uint8))
+
+
+@contextlib.contextmanager
+def replays_held_to_eager():
+    """Within the block, the first replay of each bucket's captured decode
+    step (``decode_runner._StepGraph``) is held against an eager step of
+    the same body over clones of the state it replays over: the next
+    tokens, the pool, the context lengths and the last tokens must be
+    equal byte for byte.  Yields the list of checked buckets, filled as
+    the engine runs; raises ``AssertionError`` at a difference."""
+    from repro_torch.core import decode_runner as dr
+    real = dr._StepGraph.replay
+    checked = []
+
+    def replay(graph, tensors):
+        bucket = tuple(tensors[dr.STEP_TENSORS.index("block_tables")].shape)
+        if any(c["bucket"] == list(bucket) for c in checked):
+            return real(graph, tensors)
+        clones = [t.clone() for t in tensors]
+        nxt = real(graph, tensors)
+        want = graph._step(*clones)           # eager, on the clones
+        equal = {"nxt": _bytes_equal(nxt, want)}
+        for name in ("pool", "context_lens", "tokens"):
+            i = dr.STEP_TENSORS.index(name)
+            equal[name] = _bytes_equal(tensors[i], clones[i])
+        checked.append({"bucket": list(bucket), "byte_equal": equal})
+        if not all(equal.values()):
+            raise AssertionError(f"bucket {bucket}: the replayed step "
+                                 f"differs from the eager one: {equal}")
+        return nxt
+    dr._StepGraph.replay = replay
+    try:
+        yield checked
+    finally:
+        dr._StepGraph.replay = real
 
 
 def ops_named(events, part: str) -> dict:
@@ -826,10 +892,13 @@ def profile_engine(bundle, convs, **sizes) -> dict:
     profiler slows the host, so the idle share is an upper bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import paged_attention as pa
+    pa.paged_attention.launches = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         eng, wall, _, swaps = run_engine(bundle, convs, **sizes)
-    check_engine(eng, convs, swaps)
+    counted = pa.paged_attention.launches
+    stats = check_engine(eng, convs, swaps)
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not dev:
         raise AssertionError("the profiler recorded no device operation")
@@ -843,9 +912,15 @@ def profile_engine(bundle, convs, **sizes) -> dict:
     paged = ops_named(dev, "paged_attention")
     if not paged:
         raise AssertionError("no paged-attention kernel in the profile")
+    if any(c != counted for c, _ in paged.values()):
+        raise AssertionError(f"the profiler saw the paged-attention kernels "
+                             f"{ {n: c for n, (c, _) in paged.items()} } "
+                             f"times, the wrapper counted {counted}")
     return {"wall_s": wall, "device_busy_s": busy,
             "device_idle_share": 1.0 - busy / wall,
             "device_ops": len(dev), "decode_steps": eng.runner.stats.steps,
+            "graph_replays": stats["graph_replays"],
+            "paged_attention_launches_counted": counted,
             "top_device_ops": [{"name": n, "count": c, "ms": us / 1e3}
                                for n, (c, us) in top],
             "paged_attention_ops": [{"name": n, "count": c, "ms": ms}
@@ -1010,10 +1085,19 @@ def main() -> int:
     convs = conversations(8, (256, 288, 320, 352), (96, 128, 160),
                           max_tokens=32)
     sizes = dict(gpu_blocks=160, cpu_blocks=1024, max_running=8)
-    # a first run pays one-time costs (library handles, allocator growth);
-    # the main path is the second, identical run
-    cold, cold_wall, _, cold_swaps = run_engine(bundle, convs, **sizes)
-    check_engine(cold, convs, cold_swaps)
+    # a first run pays one-time costs (library handles, allocator growth)
+    # and holds every bucket's first replay against the eager step; the
+    # main path is the second, identical run
+    with replays_held_to_eager() as held:
+        cold, cold_wall, _, cold_swaps = run_engine(bundle, convs, **sizes)
+    cold_stats = check_engine(cold, convs, cold_swaps)
+    if not held:
+        raise AssertionError("no captured decode step was replayed")
+    # a bucket left after its first (eager) step has no replay to hold
+    emit("graphs", buckets_checked=held,
+         graphs_captured=cold_stats["graphs_captured"],
+         buckets_never_replayed=cold_stats["graphs_captured"] - len(held),
+         replays_byte_equal_to_eager=True)
     del cold
     pa.paged_attention.launches = 0
     bc.block_gather_runs.launches = 0
@@ -1026,6 +1110,11 @@ def main() -> int:
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the main path never launched: "
                              f"{launches}")
+    if launches["paged_attention"] != cfg.n_layers * stats["decode_steps"]:
+        raise AssertionError(f"paged attention counted "
+                             f"{launches['paged_attention']} times over "
+                             f"{stats['decode_steps']} decode steps of "
+                             f"{cfg.n_layers} layers")
     summ = eng.metrics.summary()
     emit("engine", arch=ARCH, device=name, nvidia_smi=smi[0],
          wall_s=wall, cold_wall_s=cold_wall,

@@ -14,11 +14,22 @@ bucketed shapes:
     device inside the step (``active`` mask).
   * **In-place pool** — the step writes each row's new K/V into the pool
     tensor it was given (the reference donates it).
+  * **One captured step per bucket** — where the reference jits the step
+    once per (batch, pages) bucket, the runner captures it once per
+    bucket as a CUDA graph and replays it at every later step of the
+    bucket (``_StepGraph``).  The first step at a bucket runs eagerly (a
+    real step, which also loads the kernels' libraries and the cuBLAS
+    handles the capture needs); the capture follows it.  Every tensor
+    the graph reads or writes keeps its address for the bucket's life:
+    rows are written into the bucket's tensors in place, and a replay
+    over a moved pool raises.  On CPU tensors (the port's interpret
+    mode) the same variants replay by running the step body eagerly.
   * **Deferred host sync** — the next-token tensor is NOT pulled to the
-    host at dispatch.  ``flush`` copies it at the start of the NEXT decode
-    (the one ``.cpu()`` per step), after the engine's control plane for
-    that iteration has run.  Anyone reading ``token_history`` must flush
-    first.
+    host at dispatch.  Right after the step a non-blocking copy into a
+    pinned host buffer is queued behind it and an event recorded;
+    ``flush`` waits on that event at the start of the NEXT decode, after
+    the engine's control plane for that iteration has run.  Anyone
+    reading ``token_history`` must flush first.
 
 It also owns runner-managed prefill insertion and the chunked prefill
 state machine (``prefill_begin / prefill_chunk_compute /
@@ -36,13 +47,15 @@ discarded and their KV write lands in the reserved trash block.
 """
 from __future__ import annotations
 
+import collections
+import functools
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import launches, ops
 from repro_torch.models.paged import paged_decode_step_device, sample_tokens
 from repro_torch.models.transformer import serving_params
 
@@ -71,6 +84,9 @@ class RunnerStats:
     prefill_chunks: int = 0        # chunked-prefill forward launches
     prefill_tokens: int = 0        # prompt tokens actually forwarded
     prefill_aborts: int = 0        # mid-prefill preemptions
+    graphs_captured: int = 0       # step variants: one per bucket reached
+    graph_replays: int = 0         # steps replaying their bucket's variant
+    eager_steps: int = 0           # steps run eagerly: each bucket's first
 
 
 @dataclass
@@ -86,6 +102,64 @@ class _PrefillState:
     v_carry: Optional[torch.Tensor] = None
     last_logits: Optional[torch.Tensor] = None  # (V,) at the last real pos
     emitted: bool = False          # first token already appended to hist
+
+
+# the step's tensors, in ``paged_decode_step_device``'s order after params
+STEP_TENSORS = ("pool", "block_tables", "context_lens", "tokens", "active",
+                "keys", "sampling")
+
+
+class _StepGraph:
+    """The decode step of one (batch, pages) bucket, captured once over
+    the bucket's tensors and replayed at every later step there.
+
+    On CUDA it holds a ``torch.cuda.CUDAGraph`` of the step, the graph's
+    static next-token output ``nxt``, and the kernel launches the graph
+    holds (``kernels.launches``: each replay adds them to the wrappers'
+    counts).  The capture runs no kernel, so live state is untouched.  On
+    CPU tensors (the port's interpret mode) there is no graph: a replay
+    runs the step body eagerly over the same tensors and copies its
+    tokens into ``nxt``.  Either way it keeps the addresses of the tensors
+    it was made over, and a replay over a tensor at another address
+    raises: the graph would read and write the old one.
+
+    Capture uses the default global capture mode.  The engine thread
+    captures under the engine's pool lock (``serving._real_decode``), and
+    the swap workers touch the device only under that lock, so no other
+    thread issues CUDA work during a capture; one that did would fail
+    loudly rather than join the graph."""
+
+    def __init__(self, step: Callable, tensors: Tuple[torch.Tensor, ...]):
+        self._step = step
+        self._ptrs = tuple(t.data_ptr() for t in tensors)
+        self.graph = None
+        self.launches: collections.Counter = collections.Counter()
+        if tensors[0].is_cuda:
+            self.graph = torch.cuda.CUDAGraph()
+            with launches.capture() as self.launches, \
+                    torch.cuda.graph(self.graph):
+                self.nxt = step(*tensors)
+        else:
+            self.nxt = torch.empty_like(tensors[STEP_TENSORS.index("tokens")])
+
+    def check(self, tensors: Tuple[torch.Tensor, ...]) -> None:
+        """Raise unless every tensor is at the address captured."""
+        for name, t, ptr in zip(STEP_TENSORS, tensors, self._ptrs):
+            if t.data_ptr() != ptr:
+                raise RuntimeError(
+                    f"decode step replayed over a {name} at "
+                    f"{t.data_ptr():#x}, captured over {ptr:#x}: the "
+                    f"{name} must be written in place for the bucket's life")
+
+    def replay(self, tensors: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+        """One step over ``tensors`` (those captured); returns ``nxt``."""
+        self.check(tensors)
+        if self.graph is None:
+            self.nxt.copy_(self._step(*tensors))
+        else:
+            self.graph.replay()
+            launches.replayed(self.launches)
+        return self.nxt
 
 
 def _check_greedy(sampling: np.ndarray) -> np.ndarray:
@@ -129,8 +203,17 @@ class DecodeRunner:
         self._active = None                           # (B,) bool
         self._sampling = None                         # (B, 3) f32
         self._active_rows: frozenset = frozenset()
-        # deferred next-token sync: ([(row, token_history)], device tensor)
-        self._pending: Optional[Tuple[list, torch.Tensor]] = None
+        # the current bucket's captured step (None until its first step)
+        self._graph: Optional[_StepGraph] = None
+        self._step = functools.partial(self._step_nxt, self._params,
+                                       self.mb["cfg"])
+        # deferred next-token sync: the rows' histories waiting for the
+        # tokens queued into ``_host_nxt`` (pinned on CUDA) behind the
+        # last step, and the event recorded after that copy
+        self._pending: Optional[list] = None
+        self._host_nxt: Optional[torch.Tensor] = None
+        self._nxt_ready = (torch.cuda.Event() if self.device.type == "cuda"
+                           else None)
         # in-flight chunked prefills, keyed by rid
         self._prefills: Dict[int, _PrefillState] = {}
         self.stats = RunnerStats()
@@ -159,15 +242,28 @@ class DecodeRunner:
 
     def flush(self) -> None:
         """Materialize the previous step's next tokens into the request
-        histories: one device-to-host copy for the whole batch."""
+        histories: wait for the copy queued behind the step, then read the
+        host buffer."""
         if self._pending is None:
             return
-        rows_hist, nxt = self._pending
+        rows_hist = self._pending
         self._pending = None
-        vals = nxt.cpu().numpy()
+        if self._nxt_ready is not None:
+            self._nxt_ready.synchronize()
+        vals = self._host_nxt.numpy()
         self.stats.host_syncs += 1
         for row, hist in rows_hist:
             hist.append(int(vals[row]))
+
+    def _stage_tokens(self, nxt: torch.Tensor, rows_hist: list) -> None:
+        """Queue the step's next tokens into the host buffer behind the
+        step (before any later step can overwrite ``nxt``) and mark the
+        copy's completion with the event ``flush`` waits on."""
+        pinned = self._nxt_ready is not None
+        self._host_nxt.copy_(nxt, non_blocking=pinned)
+        if pinned:
+            self._nxt_ready.record()
+        self._pending = rows_hist
 
     # ------------------------------------------------------------------
     # device-state maintenance
@@ -197,6 +293,11 @@ class DecodeRunner:
             act[i] = True
             smp[i] = self._row_sampling(v)
         self._free = list(range(len(views), batch_bucket))
+        # the new bucket's tensors: a new step variant, captured at its
+        # first step
+        self._graph = None
+        self._host_nxt = torch.empty((batch_bucket,), dtype=torch.int32,
+                                     pin_memory=self._nxt_ready is not None)
         self._bt = self._dev(bt)
         self._ctx = self._dev(ctx)
         self._tok = self._dev(tok)
@@ -236,9 +337,11 @@ class DecodeRunner:
         self.stats.rows_updated += len(entries)
 
     def _set_active(self) -> None:
+        """Write the active-row mask into the bucket's mask tensor (in
+        place: the captured step reads it there)."""
         act = np.zeros((self._batch_bucket,), bool)
         act[list(self._active_rows)] = True
-        self._active = self._dev(act)
+        self._active.copy_(torch.from_numpy(act))
 
     def _update_rows(self, views: List[DecodeRequestView]) -> None:
         """Incremental path: write only the rows that changed."""
@@ -286,11 +389,29 @@ class DecodeRunner:
     # the step
     # ------------------------------------------------------------------
 
+    @staticmethod
+    def _step_nxt(params, cfg, *tensors) -> torch.Tensor:
+        """The step over ``tensors`` (``STEP_TENSORS``); its next tokens."""
+        return paged_decode_step_device(params, *tensors, cfg=cfg)[0]
+
+    def _step_tensors(self, pool) -> Tuple[torch.Tensor, ...]:
+        return (pool, self._bt, self._ctx, self._tok, self._active,
+                self._keys, self._sampling)
+
+    def graph_cache_size(self) -> int:
+        """Captured decode-step variants: one per (batch, pages) bucket
+        this runner has stepped at, as the reference's
+        ``jit_cache_size()`` counts one compiled variant per bucket.
+        Buckets only grow, so only the newest graph is kept."""
+        return self.stats.graphs_captured
+
     def decode(self, views: List[DecodeRequestView], pool):
         """Launch one decode step for ``views`` against ``pool``.  The pool
         is written in place and returned (the caller rebinds, as with the
-        reference's donated pool).  Next tokens stay on the device until
-        ``flush()``."""
+        reference's donated pool); it must stay the same tensor for the
+        bucket's life.  The first step at a bucket runs eagerly and then
+        captures the bucket's graph; every later step replays it.  Next
+        tokens stay on the device until ``flush()``."""
         if not views:
             raise ValueError("decode() needs at least one request")
         self.flush()
@@ -303,11 +424,17 @@ class DecodeRunner:
             self._rebuild(views, pages_bucket, batch_bucket)
         else:
             self._update_rows(views)
-        nxt, pool, self._ctx, self._tok = paged_decode_step_device(
-            self._params, pool, self._bt, self._ctx, self._tok,
-            self._active, self._keys, self._sampling, cfg=self.mb["cfg"])
-        self._pending = ([(self._rows[v.rid], v.token_history)
-                          for v in views], nxt)
+        tensors = self._step_tensors(pool)
+        if self._graph is None:
+            nxt = self._step(*tensors)
+            self._graph = _StepGraph(self._step, tensors)
+            self.stats.eager_steps += 1
+            self.stats.graphs_captured += 1
+        else:
+            nxt = self._graph.replay(tensors)
+            self.stats.graph_replays += 1
+        self._stage_tokens(nxt, [(self._rows[v.rid], v.token_history)
+                                 for v in views])
         for v in views:
             self._row_ctx[self._rows[v.rid]] += 1
         self.stats.steps += 1

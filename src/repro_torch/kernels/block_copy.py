@@ -31,7 +31,7 @@ from typing import List, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, launches
 
 
 def copy_runs_plain(src, dst, src_starts, dst_starts, run_lens,
@@ -110,7 +110,7 @@ def block_gather_runs(pool, slab0, src_starts, dst_starts, run_lens,
                                run_blocks)
     if _copy_runs_cuda(pool, slab0, src_starts, dst_starts, run_lens,
                        run_blocks, "block_gather_runs"):
-        block_gather_runs.launches += 1
+        launches.count(block_gather_runs)
     return slab0
 
 
@@ -125,7 +125,7 @@ def block_scatter_runs(slab, pool, src_starts, dst_starts, run_lens,
                                run_blocks)
     if _copy_runs_cuda(slab, pool, src_starts, dst_starts, run_lens,
                        run_blocks, "block_scatter_runs"):
-        block_scatter_runs.launches += 1
+        launches.count(block_scatter_runs)
     return pool
 
 
@@ -191,7 +191,7 @@ def block_copy(src_pool, dst_pool, src_blocks, dst_blocks):
         row_bytes, winner.data_ptr(),
         torch.cuda.current_stream(dst_pool.device).cuda_stream)
     build.check_launch(code, what)
-    block_copy.launches += 1
+    launches.count(block_copy)
     return dst_pool
 
 
@@ -230,7 +230,7 @@ def block_copy_grouped(src_pool, dst_pool, src_starts, dst_starts, run_lens,
     if _copy_runs_cuda(src_pool[None], dst_pool[None], src_starts,
                        dst_starts, run_lens, run_blocks,
                        "block_copy_grouped"):
-        block_copy_grouped.launches += 1
+        launches.count(block_copy_grouped)
     return dst_pool
 
 

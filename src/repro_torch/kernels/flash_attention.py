@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, launches
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
@@ -102,7 +102,7 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
         S, D, int(causal), int(q.dtype == torch.bfloat16), float(D ** -0.5),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check_launch(code, "flash_attention")
-    flash_attention.launches += 1
+    launches.count(flash_attention)
     return out
 
 

@@ -24,7 +24,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, launches
 
 # shared memory one CTA may use on an H100 (227 KB)
 MAX_SMEM_BYTES = 232_448
@@ -169,7 +169,7 @@ def gla_scan_scalar(q, k, v, logw, *, chunk: int = 64):
         int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check_launch(code, "gla_scan_scalar")
-    gla_scan_scalar.launches += 1
+    launches.count(gla_scan_scalar)
     return y, S
 
 

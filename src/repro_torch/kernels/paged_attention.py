@@ -21,7 +21,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, launches
 from repro_torch.kernels.block_copy import _block_index
 
 NEG_INF = -1e30
@@ -134,7 +134,8 @@ def paged_attention(q, k_pool, v_pool, block_tables, context_lens,
 
     CPU tensors take ``paged_attention_plain``; CUDA tensors launch the
     kernel on the current stream (and count the launch in
-    ``paged_attention.launches``)."""
+    ``paged_attention.launches``, or, inside a CUDA graph capture, in the
+    capture's tally, which each replay adds: ``kernels.launches``)."""
     if not q.is_cuda:
         return paged_attention_plain(q, k_pool, v_pool, block_tables,
                                      context_lens, scale,
@@ -160,7 +161,7 @@ def paged_attention(q, k_pool, v_pool, block_tables, context_lens,
         n_pages, npp, n_splits, chunk, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check_launch(code, "paged_attention")
-    paged_attention.launches += 1
+    launches.count(paged_attention)
     return out
 
 

@@ -50,19 +50,34 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** exps)
 
 
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float,
+                device=None):
+    """(cos, sin) of the rotary angles at ``positions`` (..., T): each
+    (..., T, head_dim / 2) fp32.  A forward computes them once and
+    applies them to q and k of every layer with ``rope_apply``."""
+    device = positions.device if device is None else device
+    freqs = rope_freqs(head_dim, theta, device=device)       # (D/2,)
+    angles = positions[..., None].float() * freqs            # (..., T, D/2)
+    return torch.cos(angles), torch.sin(angles)
+
+
+def rope_apply(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x: (..., T, H, D) or (..., T, D); cos, sin: ``rope_tables`` at x's
+    positions, broadcastable to (..., T, D/2)."""
+    if x.dim() == cos.dim() + 1:                             # heads axis
+        cos, sin = cos[..., None, :], sin[..., None, :]      # (..., T, 1, D/2)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (..., T, H, D) or (..., T, D); positions: broadcastable to
     (..., T)."""
-    head_dim = x.shape[-1]
-    freqs = rope_freqs(head_dim, theta, device=x.device)     # (D/2,)
-    angles = positions[..., None].float() * freqs            # (..., T, D/2)
-    if x.dim() == angles.dim() + 1:                          # heads axis
-        angles = angles[..., None, :]                        # (..., T, 1, D/2)
-    cos, sin = torch.cos(angles), torch.sin(angles)
-    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
+    return rope_apply(x, *rope_tables(positions, x.shape[-1], theta,
+                                      device=x.device))
 
 
 # ---------------------------------------------------------------------------

@@ -55,7 +55,9 @@ def _decode_hidden(params, pool, block_tables, context_lens, tokens,
     bs = pool.shape[3]
     n_pages = block_tables.shape[1]
     x = L.embed(params["embed"], tokens[:, None])          # (B, 1, d)
-    positions = context_lens[:, None]                      # rope positions
+    # the rotary tables of the step's positions, once for every layer
+    cos, sin = L.rope_tables(context_lens[:, None], cfg.resolved_head_dim,
+                             cfg.rope_theta)
     scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
     ppcb = page_tile(n_pages)
     # the reference's gather clamps an out-of-table page index; so does
@@ -68,8 +70,8 @@ def _decode_hidden(params, pool, block_tables, context_lens, tokens,
         pool_l = pool[layer]                               # (2, nb, bs, H, D)
         h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
         q, k, v = attn._project_qkv(lp["attn"], h, cfg)
-        q = L.apply_rope(q, positions, cfg.rope_theta)
-        k = L.apply_rope(k, positions, cfg.rope_theta)
+        q = L.rope_apply(q, cos, sin)
+        k = L.rope_apply(k, cos, sin)
         pool_l[0, blk, off] = k[:, 0].to(pool.dtype)
         pool_l[1, blk, off] = v[:, 0].to(pool.dtype)
         a = ops.paged_attention(q[:, 0].contiguous(), pool_l[0], pool_l[1],
@@ -94,7 +96,9 @@ def sample_tokens(logits, keys, ctx, sampling):
 def _device_step_core(params, pool, block_tables, context_lens, tokens,
                       active, keys, sampling, cfg: ModelConfig):
     """One decode step.  Returns (next_tokens, pool, new_ctx, new_tokens);
-    ``pool``, ``context_lens`` and ``tokens`` are updated in place."""
+    ``pool``, ``context_lens`` and ``tokens`` are updated in place.  The
+    runner captures this body as a CUDA graph per bucket, so it must not
+    synchronise with the host: every launch follows from shapes alone."""
     x_last, pool = _decode_hidden(params, pool, block_tables, context_lens,
                                   tokens, cfg)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
@@ -136,6 +140,8 @@ def _prefill_chunk_core(params, tokens, k_carry, v_carry, prefix_len: int,
     dev = tokens.device
     x = L.embed(params["embed"], tokens)                   # (1, C_pad, d)
     positions = prefix_len + torch.arange(C_pad, device=dev)[None, :]
+    cos, sin = L.rope_tables(positions, cfg.resolved_head_dim,
+                             cfg.rope_theta)
     scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
     mask = (torch.arange(S_pad, device=dev)[None, :]
             <= positions[0][:, None])[None, None]          # (1,1,C_pad,S_pad)
@@ -143,8 +149,8 @@ def _prefill_chunk_core(params, tokens, k_carry, v_carry, prefix_len: int,
         kc, vc = k_carry[layer], v_carry[layer]            # (S_pad, H, D)
         h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
         q, k, v = attn._project_qkv(lp["attn"], h, cfg)
-        q = L.apply_rope(q, positions, cfg.rope_theta)
-        k = L.apply_rope(k, positions, cfg.rope_theta)
+        q = L.rope_apply(q, cos, sin)
+        k = L.rope_apply(k, cos, sin)
         kc[prefix_len:prefix_len + C_pad] = k[0]
         vc[prefix_len:prefix_len + C_pad] = v[0]
         a = attn._sdpa(q, kc[None], vc[None], mask, scale)

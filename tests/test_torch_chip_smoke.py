@@ -29,16 +29,27 @@ SIZES = dict(gpu_blocks=160, cpu_blocks=1024, max_running=8)
 
 
 @pytest.fixture(scope="module")
-def served():
+def served_held():
+    """The engine phase at smoke size on the CPU, with the ``graphs``
+    check over it: (bundle, convs, engine, swaps) and the checked
+    buckets."""
     cfg = get_smoke_config("qwen2-1.5b")
     bundle = {"cfg": cfg, "params": T.init_params(cfg, seed=0,
                                                   device="cpu")}
     convs = chip_smoke.conversations(8, (256, 288, 320, 352),
                                      (96, 128, 160), max_tokens=32)
-    eng, wall, host, swaps = chip_smoke.run_engine(bundle, convs, **SIZES)
-    assert wall > 0 and set(host) == {"decode", "prefill_chunk_compute",
+    with chip_smoke.replays_held_to_eager() as held:
+        eng, wall, host, swaps = chip_smoke.run_engine(bundle, convs,
+                                                       **SIZES)
+    assert wall > 0 and set(host) == {"decode", "flush", "_scatter_rows",
+                                      "prefill_chunk_compute",
                                       "copy_out_staged", "copy_in_staged"}
-    return bundle, convs, eng, swaps
+    return (bundle, convs, eng, swaps), held
+
+
+@pytest.fixture(scope="module")
+def served(served_held):
+    return served_held[0]
 
 
 def test_engine_phase_preempts_and_swaps_both_ways(served):
@@ -365,3 +376,54 @@ def test_ops_named_sums_the_paged_attention_kernels():
         "paged_attention_split_kernel": [2, pytest.approx(0.011)],
         "paged_attention_combine_kernel": [1, pytest.approx(0.002)]}
     assert chip_smoke.ops_named(events, "flash") == {}
+
+
+def test_engine_phase_replays_one_step_variant_per_bucket(served_held):
+    """Every decode step is a bucket's first (eager) step or a replay of
+    its variant; one variant per bucket rebuild; and the first replay at
+    each bucket was held against the eager step (``graphs`` phase)."""
+    (_, convs, eng, swaps), held = served_held
+    stats = chip_smoke.check_engine(eng, convs, swaps)
+    assert stats["eager_steps"] + stats["graph_replays"] == \
+        stats["decode_steps"]
+    assert stats["graphs_captured"] == eng.runner.stats.rebuilds >= 1
+    assert stats["batch_bucket"] == 8
+    assert 1 <= len(held) <= stats["graphs_captured"]
+    assert held[-1]["bucket"][0] == 8
+    assert all(all(c["byte_equal"].values()) for c in held)
+
+
+def test_engine_phase_catches_a_miscounted_step(served, monkeypatch):
+    _, convs, eng, swaps = served
+    monkeypatch.setattr(eng.runner.stats, "graph_replays",
+                        eng.runner.stats.graph_replays - 1)
+    with pytest.raises(AssertionError, match="replayed"):
+        chip_smoke.check_engine(eng, convs, swaps)
+
+
+def test_graph_check_catches_a_replay_that_differs_from_eager(monkeypatch):
+    """A replay that writes a wrong context length (as a graph over a
+    stale tensor would) fails the ``graphs`` phase's byte comparison."""
+    from repro_torch.core import decode_runner as dr
+    from repro_torch.core.decode_runner import DecodeRequestView
+    real = dr._StepGraph.replay
+
+    def off_by_one(graph, tensors):
+        nxt = real(graph, tensors)
+        tensors[dr.STEP_TENSORS.index("context_lens")].add_(1)
+        return nxt
+    monkeypatch.setattr(dr._StepGraph, "replay", off_by_one)
+    cfg = get_smoke_config("qwen2-1.5b")
+    bundle = {"cfg": cfg, "params": T.init_params(cfg, seed=0,
+                                                  device="cpu")}
+    runner = dr.DecodeRunner(bundle, block_size=4, trash_block=7)
+    pool = torch.zeros((cfg.n_layers, 2, 8, 4, cfg.n_kv_heads,
+                        cfg.resolved_head_dim), dtype=torch.bfloat16)
+    hist = [3]
+    with chip_smoke.replays_held_to_eager() as held:
+        pool = runner.decode([DecodeRequestView(0, [0], hist)], pool)
+        with pytest.raises(AssertionError, match="differs from the eager"):
+            runner.decode([DecodeRequestView(0, [0], hist)], pool)
+    assert held == [{"bucket": [1, 1], "byte_equal": {
+        "nxt": True, "pool": True, "context_lens": False, "tokens": True}}]
+    assert dr._StepGraph.replay is off_by_one      # restored on exit
