@@ -39,12 +39,31 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                ``eager_steps``).  Wall seconds and tokens/s are measured;
                TTFT/TBT are the engine's simulated clock, modelled by the
                A10 cost model, and named so.
-  4a. graphs — in the first (warm-up) engine run, the first replay at every
-               bucket the engine visits is held against an eager step over
-               clones of the same state: next tokens, pool, context
-               lengths and last tokens equal byte for byte.
   5. e2e     — every conversation's greedy tokens against a plain dense
                forward (no pages, plain attention) on the card.
+  5b. sampling — a full-width ``ServingEngine`` serving eight requests in
+               one batch, the odd ones at ``SamplingParams(temperature=0.8,
+               top_k=50, top_p=0.9)``, the even ones greedy: greedy tokens
+               as in ``e2e``; every sampled token the CPU's plain sampler
+               draws from the dense forward's logits with the row's key
+               (or a stated near-tie); a second identical run gives the
+               same tokens, with paged attention counted once per layer
+               per step (counts set to 0 just before it); the greedy
+               requests' tokens equal those of an all-greedy batch; the
+               threefry words made on the card equal the CPU's byte for
+               byte; one replay of each variant is timed.
+  5c. graphs — in the first (warm-up) engine run and the first sampling
+               run, the first replay of every (bucket, variant) the engine
+               steps (argmax-only, and sampled) is held against an eager
+               step over clones of the same state: next tokens, pool,
+               context lengths and last tokens equal byte for byte.
+  5d. serve  — the launcher, ``python -m repro_torch.launch.serve``, as a
+               subprocess at full width: a real-mode replay of qwen2-1.5b
+               under both policies (vllm and fastswitch, 8 conversations;
+               per-policy summary, swaps, ``callstack_wall_s`` and its
+               kernel launches) and the online smoke with its event log
+               passed through ``validate_event_log``; a non-zero exit
+               fails the script.
   6. device_times — the device time of each phase-3 kernel and library
                call alone: their CUDA kernels under ``torch.profiler``, the
                wrapper's host time left out.  After the engine phases,
@@ -103,6 +122,16 @@ GLA_S_ATOL, GLA_S_RTOL = 2e-5, 1e-5
 # (chunked prefill, the hand-written attention kernel) than in the dense
 # one, which can flip a near-tie but not a clear winner
 NEAR_TIE = 5e-2
+# the sampling phase's sampled requests; a sampled token the CPU's plain
+# sampler does not draw from the dense forward's logits is accepted only
+# where the two tokens' scaled logits plus Gumbel noise lie within
+# NEAR_TIE / temperature (the greedy rule, scaled as the sampler scales
+# the logits), where either token's scaled logit lies that close to the
+# top-k threshold, or where the nucleus mass before either token lies
+# within NUCLEUS_EPS of top_p (probabilities moved by such logit
+# differences, summed over the tokens ranked above)
+SAMPLING = (0.8, 50, 0.9)
+NUCLEUS_EPS = 2e-2
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
 # dense bf16 tensor-core FLOP/s
 HBM_BYTES_S = 3.35e12
@@ -830,19 +859,22 @@ def _bytes_equal(a, b) -> bool:
 
 @contextlib.contextmanager
 def replays_held_to_eager():
-    """Within the block, the first replay of each bucket's captured decode
-    step (``decode_runner._StepGraph``) is held against an eager step of
-    the same body over clones of the state it replays over: the next
-    tokens, the pool, the context lengths and the last tokens must be
-    equal byte for byte.  Yields the list of checked buckets, filled as
-    the engine runs; raises ``AssertionError`` at a difference."""
+    """Within the block, the first replay of each captured decode-step
+    variant (``decode_runner._StepGraph``: a bucket's argmax-only and
+    sampled graphs) is held against an eager step of the same body over
+    clones of the state it replays over: the next tokens, the pool, the
+    context lengths and the last tokens must be equal byte for byte.
+    Yields the list of checked (bucket, variant), filled as the engine
+    runs; raises ``AssertionError`` at a difference."""
     from repro_torch.core import decode_runner as dr
     real = dr._StepGraph.replay
     checked = []
 
     def replay(graph, tensors):
-        bucket = tuple(tensors[dr.STEP_TENSORS.index("block_tables")].shape)
-        if any(c["bucket"] == list(bucket) for c in checked):
+        bucket = list(tensors[dr.STEP_TENSORS.index("block_tables")].shape)
+        sampled = graph._step.keywords["sampled"]
+        if any(c["bucket"] == bucket and c["sampled"] == sampled
+               for c in checked):
             return real(graph, tensors)
         clones = [t.clone() for t in tensors]
         nxt = real(graph, tensors)
@@ -851,10 +883,12 @@ def replays_held_to_eager():
         for name in ("pool", "context_lens", "tokens"):
             i = dr.STEP_TENSORS.index(name)
             equal[name] = _bytes_equal(tensors[i], clones[i])
-        checked.append({"bucket": list(bucket), "byte_equal": equal})
+        checked.append({"bucket": bucket, "sampled": sampled,
+                        "byte_equal": equal})
         if not all(equal.values()):
-            raise AssertionError(f"bucket {bucket}: the replayed step "
-                                 f"differs from the eager one: {equal}")
+            raise AssertionError(f"bucket {bucket}, sampled {sampled}: the "
+                                 f"replayed step differs from the eager "
+                                 f"one: {equal}")
         return nxt
     dr._StepGraph.replay = replay
     try:
@@ -967,6 +1001,251 @@ def check_tokens(eng, bundle, conv, tol: float = NEAR_TIE) -> dict:
     return {"conv": conv.conv_id, "generated": len(generated),
             "equal": equal, "near_ties": len(generated) - equal,
             "max_gap": worst, "tolerance": tol}
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: sampled requests
+# ---------------------------------------------------------------------------
+
+
+def row_key(seed: int, rid: int, salt: int = 0):
+    """The runner's base key of request ``rid`` (``DecodeRunner._row_key``,
+    the reference's fold of (seed, rid[, salt])), on the CPU."""
+    from repro_torch.models import prng
+    k = prng.fold_in(prng.prng_key(seed), rid)
+    return prng.fold_in(k, salt) if salt else k
+
+
+def sampled_apart(logits, key, ctx: int, smp, a: int, b: int,
+                  tol: float = NEAR_TIE) -> str:
+    """Why the draw at ``ctx`` with ``key`` may be either token a or b when
+    the logits are known only to ``tol``: "tie" where their scaled logits
+    plus Gumbel noise lie within tol / temperature, "top_k" where either
+    scaled logit lies that close to the top-k threshold, "nucleus" where
+    the nucleus mass before either lies within ``NUCLEUS_EPS`` of top_p;
+    "" where none holds.  ``logits`` (V,), on the CPU."""
+    import torch
+    from repro_torch.models import prng
+    t, k, p = (float(v) for v in smp)
+    scaled = logits.float().cpu() / max(t, 1e-6)
+    V = scaled.shape[-1]
+    noisy = scaled + prng.gumbel(prng.fold_in(key, ctx), (V,))
+    if abs(float(noisy[a] - noisy[b])) < tol / t:
+        return "tie"
+    vals, order = torch.sort(scaled, descending=True)
+    if k > 0 and any(abs(float(scaled[x] - vals[int(k) - 1])) < tol / t
+                     for x in (a, b)):
+        return "top_k"
+    probs = torch.softmax(vals.double(), dim=-1)
+    before = torch.cumsum(probs, 0) - probs
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(V)
+    if any(abs(float(before[rank[x]]) - p) < NUCLEUS_EPS for x in (a, b)):
+        return "nucleus"
+    return ""
+
+
+def check_sampled_tokens(eng, bundle, conv, smp, seed: int = SEED,
+                         tol: float = NEAR_TIE) -> dict:
+    """Teacher-force the conversation's history through the plain dense
+    forward once; every token the engine generated must be the draw of
+    the plain sampler on the CPU (``models.paged.sample_tokens``) from the
+    dense logits at its position, with the request's key: salted 1 at
+    position len(history) for a turn's first token, as the prefill emits
+    it, else at the previous position, as a decode step draws.  A token
+    it does not draw must be explained by ``sampled_apart``."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.paged import sample_tokens
+    hist = eng._token_hist_by_conv[conv.conv_id]
+    firsts, generated, pos = set(), [], 0
+    for turn in conv.turns:
+        pos += turn.prompt_tokens
+        firsts.add(pos)
+        generated.extend(range(pos, pos + turn.response_tokens))
+        pos += turn.response_tokens
+    if len(hist) != pos:
+        raise AssertionError(f"history holds {len(hist)} tokens, the turns "
+                             f"{pos}")
+    device = bundle["params"]["embed"]["table"].device
+    toks = torch.tensor([hist], dtype=torch.long, device=device)
+    with torch.no_grad():
+        logits, _ = T.forward_seq(bundle["params"], bundle["cfg"], toks)
+    lg = logits[0, [i - 1 for i in generated]].float().cpu()
+    smp_t = torch.tensor([list(smp)], dtype=torch.float32)
+    equal, why = 0, []
+    for j, i in enumerate(generated):
+        first = i in firsts
+        key = row_key(seed, conv.conv_id, salt=1 if first else 0)
+        ctx = i if first else i - 1
+        want = int(sample_tokens(lg[j][None], key[None],
+                                 torch.tensor([ctx]), smp_t)[0])
+        if hist[i] == want:
+            equal += 1
+            continue
+        reason = sampled_apart(lg[j], key, ctx, smp, hist[i], want, tol)
+        if not reason:
+            raise AssertionError(f"conversation {conv.conv_id}, token {i}: "
+                                 f"the engine drew {hist[i]}, the plain "
+                                 f"sampler {want}, and no near-tie explains "
+                                 "it")
+        why.append(reason)
+    return {"conv": conv.conv_id, "generated": len(generated),
+            "equal": equal, "near_ties": why}
+
+
+def run_sampling(bundle, n_requests: int = 8,
+                 prompt_tokens=(256, 288, 320, 352), max_tokens: int = 32,
+                 gpu_blocks: int = 256, sampling=SAMPLING):
+    """Serve ``n_requests`` single-turn requests in one batch through
+    ``ServingEngine`` in real mode: odd handles sample at ``sampling``
+    (greedy too where it is None), even ones are greedy.  Returns
+    (engine, the requests as conversations)."""
+    from repro_torch.core import EngineConfig, SamplingParams, ServingEngine
+    from repro_torch.data.sharegpt import Conversation, Turn
+    cfg = EngineConfig(mode="real", num_gpu_blocks=gpu_blocks,
+                       num_cpu_blocks=gpu_blocks, max_running=n_requests,
+                       max_batch=n_requests, block_size=16,
+                       seed=SEED).with_policy("fastswitch")
+    eng = ServingEngine(cfg, model_bundle=bundle)
+    vocab = bundle["cfg"].vocab_size
+    convs = []
+    for h in range(n_requests):
+        n = prompt_tokens[h % len(prompt_tokens)]
+        t, k, p = sampling if h % 2 and sampling else (0.0, 0, 1.0)
+        eng.add_request([(31 * h + 7 * i + 1) % vocab for i in range(n)],
+                        SamplingParams(max_tokens=max_tokens, temperature=t,
+                                       top_k=k, top_p=p), handle=h)
+        convs.append(Conversation(conv_id=h, arrival_s=0.0,
+                                  turns=[Turn(n, max_tokens)]))
+    while eng.has_work():
+        eng.step()
+    eng.shutdown()
+    return eng, convs
+
+
+def check_sampling(eng, convs) -> dict:
+    """Every request finished with its tokens; the runner stepped the
+    sampled variant and counted its graphs apart from the buckets."""
+    m = eng.metrics
+    want = sum(c.turns[0].response_tokens for c in convs)
+    if m.total_tokens != want or m.faulted or m.dropped:
+        raise AssertionError(f"{m.total_tokens} tokens of {want}, faulted "
+                             f"{m.faulted}, dropped {m.dropped}")
+    st = eng.runner.stats
+    if st.sampled_graphs <= 0:
+        raise AssertionError("no sampled decode-step variant was captured")
+    if st.eager_steps != st.graphs_captured + st.sampled_graphs or \
+            eng.runner.graph_cache_size() != st.rebuilds:
+        raise AssertionError(f"{st.eager_steps} eager steps, "
+                             f"{st.graphs_captured} argmax-only and "
+                             f"{st.sampled_graphs} sampled graphs, "
+                             f"{st.rebuilds} buckets")
+    return {"decode_steps": st.steps, "buckets": st.rebuilds,
+            "argmax_only_graphs": st.graphs_captured,
+            "sampled_graphs": st.sampled_graphs,
+            "graph_replays": st.graph_replays}
+
+
+def step_ms(eng) -> dict:
+    """CUDA-event ms of one replay of each decode-step variant the runner
+    holds for its last bucket, after the engine finished (its rows are
+    then released: the replays write only the trash block)."""
+    import torch
+    out = {}
+    for sampled, g in eng.runner._graphs.items():
+        if g.graph is None:
+            raise AssertionError("step_ms needs captured CUDA graphs")
+        out["sampled" if sampled else "argmax_only"] = time_ms(
+            g.graph.replay)
+    torch.cuda.synchronize()
+    return out
+
+
+def threefry_on_card_equals_cpu(device, n_rows: int = 8,
+                                vocab: int = 151936) -> int:
+    """The sampler's random words of ``n_rows`` request keys folded with
+    positions, made on the card and on the CPU: byte-equal, or raise.
+    Returns the number of words compared."""
+    import torch
+    from repro_torch.models import prng
+    keys = torch.stack([row_key(SEED, r) for r in range(n_rows)])
+    ctx = torch.arange(n_rows, dtype=torch.int32) * 97 + 255
+    words = {}
+    for dev in ("cpu", device):
+        folded = prng.fold_in(keys.to(dev), ctx.to(dev))
+        words[str(dev)] = prng.random_bits(folded, (vocab,)).cpu()
+    if not torch.equal(words["cpu"], words[str(device)]):
+        raise AssertionError("threefry words on the card differ from the "
+                             "CPU's")
+    return words["cpu"].numel()
+
+
+# ---------------------------------------------------------------------------
+# phase 5d: the launcher
+# ---------------------------------------------------------------------------
+
+
+def run_launcher(args, out_dir: Path, timeout: float = 600.0) -> dict:
+    """``python -m repro_torch.launch.serve ARGS --out OUT`` from the
+    checkout's root; raises on a non-zero exit.  Returns {"results": the
+    --out JSON, "wall_s": the subprocess's wall seconds, "stdout": its
+    output lines}."""
+    import os
+    out = out_dir / f"serve_{len(list(out_dir.iterdir()))}.json"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", *args,
+           "--out", str(out)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd[1:])} exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    return {"results": json.loads(out.read_text()), "wall_s": wall,
+            "stdout": proc.stdout.splitlines()}
+
+
+def serve_phase(out_dir: Path, device: str = "cuda",
+                conversations: int = 8) -> dict:
+    """The launcher's replay of ``conversations`` under both policies and
+    its online smoke, each at full width on ``device`` (the reduced model
+    on the CPU); the online event log passes ``validate_event_log``.
+    Returns what the ``serve`` line prints."""
+    from repro_torch.launch.serve import validate_event_log
+    replay = run_launcher(["--arch", ARCH, "--real", "--device", device,
+                           "--policy", "vllm", "--policy", "fastswitch",
+                           "--conversations", str(conversations)], out_dir)
+    events = out_dir / "online_events.jsonl"
+    online = run_launcher(["--online", "--real", "--smoke", "--device",
+                           device, "--events", str(events)], out_dir)
+    n_events = validate_event_log(str(events))
+    keep = {"total_tokens": "total_tokens", "preemptions": "preemptions",
+            "callstack_wall_s": "callstack_wall_s", "ops_in": "swaps_in",
+            "ops_out": "swaps_out", "blocks_in": "blocks_in",
+            "blocks_out": "blocks_out",
+            # the engine's simulated clock, modelled by the A10 cost model
+            "p99_ttft_ms": "a10_modelled_p99_ttft_ms",
+            "p99_tbt_ms": "a10_modelled_p99_tbt_ms"}
+    policies = {}
+    for pol, r in replay["results"].items():
+        launches = r["kernel_launches"]
+        if device == "cuda" and launches["paged_attention"] <= 0:
+            raise AssertionError(f"serve --policy {pol}: paged attention "
+                                 f"never launched: {launches}")
+        policies[pol] = {**{new: r[old] for old, new in keep.items()},
+                         "kernel_launches": launches}
+    o = online["results"]
+    return {"replay": {"wall_s": replay["wall_s"], "policies": policies,
+                       "stdout": replay["stdout"]},
+            "online_smoke": {"wall_s": online["wall_s"],
+                             "events": n_events,
+                             "total_tokens": o["total_tokens"],
+                             "callstack_wall_s": o["callstack_wall_s"],
+                             "kernel_launches": o["kernel_launches"],
+                             "stdout": online["stdout"][-3:]}}
 
 
 # ---------------------------------------------------------------------------
@@ -1093,11 +1372,6 @@ def main() -> int:
     cold_stats = check_engine(cold, convs, cold_swaps)
     if not held:
         raise AssertionError("no captured decode step was replayed")
-    # a bucket left after its first (eager) step has no replay to hold
-    emit("graphs", buckets_checked=held,
-         graphs_captured=cold_stats["graphs_captured"],
-         buckets_never_replayed=cold_stats["graphs_captured"] - len(held),
-         replays_byte_equal_to_eager=True)
     del cold
     pa.paged_attention.launches = 0
     bc.block_gather_runs.launches = 0
@@ -1132,6 +1406,61 @@ def main() -> int:
          max_gap=max(r["max_gap"] for r in per_conv), tolerance=NEAR_TIE,
          by_conv=per_conv)
     del eng
+
+    # 5b. sampling: half the batch sampled; its first run holds each new
+    # variant's first replay against the eager step
+    with replays_held_to_eager() as held_s:
+        s_eng, s_convs = run_sampling(bundle)
+    s_stats = check_sampling(s_eng, s_convs)
+    if not any(c["sampled"] for c in held_s):
+        raise AssertionError("no sampled decode-step variant was replayed")
+    # a bucket left after its first (eager) step has no replay to hold
+    emit("graphs", buckets_checked=held + held_s,
+         graphs_captured=cold_stats["graphs_captured"],
+         buckets_never_replayed=cold_stats["graphs_captured"] - len(held),
+         sampled_graphs=s_stats["sampled_graphs"],
+         replays_byte_equal_to_eager=True)
+    greedy_rows = [check_tokens(s_eng, bundle, c)
+                   for c in s_convs if c.conv_id % 2 == 0]
+    sampled_rows = [check_sampled_tokens(s_eng, bundle, c, SAMPLING)
+                    for c in s_convs if c.conv_id % 2]
+    pa.paged_attention.launches = 0
+    again, _ = run_sampling(bundle)
+    s_launches = pa.paged_attention.launches
+    if s_launches != cfg.n_layers * again.runner.stats.steps:
+        raise AssertionError(f"paged attention counted {s_launches} times "
+                             f"over {again.runner.stats.steps} sampled-batch "
+                             f"decode steps of {cfg.n_layers} layers")
+    if again._token_hist_by_conv != s_eng._token_hist_by_conv:
+        raise AssertionError("a second identical sampling run gave other "
+                             "tokens")
+    plain, _ = run_sampling(bundle, sampling=None)
+    for c in s_convs[::2]:
+        if plain._token_hist_by_conv[c.conv_id] != \
+                s_eng._token_hist_by_conv[c.conv_id]:
+            raise AssertionError(f"greedy request {c.conv_id}: its tokens "
+                                 "beside sampled rows differ from those of "
+                                 "an all-greedy batch")
+    step_times = {**step_ms(s_eng), **step_ms(plain)}
+    emit("sampling", **s_stats, sampling=list(SAMPLING),
+         paged_attention_launches=s_launches,
+         bucket=[s_eng.runner.batch_bucket, s_eng.runner._pages_bucket],
+         step_ms=step_times, nvidia_smi=smi[0],
+         greedy_equal=sum(r["equal"] for r in greedy_rows),
+         greedy_near_ties=sum(r["near_ties"] for r in greedy_rows),
+         sampled_generated=sum(r["generated"] for r in sampled_rows),
+         sampled_equal=sum(r["equal"] for r in sampled_rows),
+         sampled_near_ties=[w for r in sampled_rows
+                            for w in r["near_ties"]],
+         tolerance={"near_tie": NEAR_TIE, "nucleus_eps": NUCLEUS_EPS},
+         second_run_equal=True, greedy_rows_equal_all_greedy_batch=True,
+         threefry_words_equal_cpu=threefry_on_card_equals_cpu(dev))
+    del s_eng, again, plain
+
+    # 5d. the launcher, at full width, in subprocesses
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        emit("serve", nvidia_smi=smi[0], **serve_phase(Path(tmp)))
 
     # 6. device times of phase 3's calls, after the timed engine runs
     for t in all_timed.values():

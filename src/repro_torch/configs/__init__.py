@@ -24,6 +24,8 @@ from repro_torch.configs.base import (  # noqa: F401  (re-exports)
 # arch id -> module name
 _REGISTRY: Dict[str, str] = {
     "qwen2-1.5b": "repro_torch.configs.qwen2_1p5b",
+    "llama3.2-3b": "repro_torch.configs.llama3p2_3b",
+    "mistral-nemo-12b": "repro_torch.configs.mistral_nemo_12b",
 }
 
 

@@ -1,6 +1,6 @@
 """Device-resident decode runner — the real-mode token hot path.
 
-Counterpart of ``repro/core/decode_runner.py`` (single device, greedy).
+Counterpart of ``repro/core/decode_runner.py`` (single device).
 The runner keeps the per-step decode state ON the device in fixed,
 bucketed shapes:
 
@@ -24,6 +24,16 @@ bucketed shapes:
     rows are written into the bucket's tensors in place, and a replay
     over a moved pool raises.  On CPU tensors (the port's interpret
     mode) the same variants replay by running the step body eagerly.
+  * **Device-side sampling** — temperature / top-k / top-p sampling is
+    fused into the step (``models.paged.sample_tokens``) with a per-row
+    (B, 2) tensor of base threefry keys folded from (seed, rid); the step
+    folds the position in, so the stream is a pure function of (seed,
+    rid, position), as in the reference.  Where the reference keeps an
+    all-greedy step argmax-only with a ``lax.cond`` inside one compiled
+    variant, a graph cannot branch on a device value: the runner knows on
+    the host whether an active row samples, and a bucket gets a second,
+    sampled variant, captured the same way at its first sampled step.
+    All-greedy steps keep replaying the argmax-only graph.
   * **Deferred host sync** — the next-token tensor is NOT pulled to the
     host at dispatch.  Right after the step a non-blocking copy into a
     pinned host buffer is queued behind it and an event recorded;
@@ -36,9 +46,6 @@ state machine (``prefill_begin / prefill_chunk_compute /
 prefill_chunk_insert / prefill_finish / prefill_abort``): prompts run as
 pow2-bucketed position-masked chunks whose KV is carried chunk to chunk
 on the device and inserted block-aligned into the pool.
-
-Sampling is greedy in this slice: a runner default or a request with
-temperature > 0 raises ``NotImplementedError``.
 
 Row-occupancy invariant: a row is either *registered* (owned by a live
 request, block table = its pages) or *freed* (block table = trash page,
@@ -56,6 +63,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import launches, ops
+from repro_torch.models import prng
 from repro_torch.models.paged import paged_decode_step_device, sample_tokens
 from repro_torch.models.transformer import serving_params
 
@@ -84,9 +92,10 @@ class RunnerStats:
     prefill_chunks: int = 0        # chunked-prefill forward launches
     prefill_tokens: int = 0        # prompt tokens actually forwarded
     prefill_aborts: int = 0        # mid-prefill preemptions
-    graphs_captured: int = 0       # step variants: one per bucket reached
+    graphs_captured: int = 0       # argmax-only variants captured
+    sampled_graphs: int = 0        # sampled variants captured
     graph_replays: int = 0         # steps replaying their bucket's variant
-    eager_steps: int = 0           # steps run eagerly: each bucket's first
+    eager_steps: int = 0           # steps run eagerly: each variant's first
 
 
 @dataclass
@@ -110,8 +119,9 @@ STEP_TENSORS = ("pool", "block_tables", "context_lens", "tokens", "active",
 
 
 class _StepGraph:
-    """The decode step of one (batch, pages) bucket, captured once over
-    the bucket's tensors and replayed at every later step there.
+    """One variant (argmax-only or sampled) of the decode step of one
+    (batch, pages) bucket, captured once over the bucket's tensors and
+    replayed at every later step of that variant there.
 
     On CUDA it holds a ``torch.cuda.CUDAGraph`` of the step, the graph's
     static next-token output ``nxt``, and the kernel launches the graph
@@ -162,14 +172,6 @@ class _StepGraph:
         return self.nxt
 
 
-def _check_greedy(sampling: np.ndarray) -> np.ndarray:
-    if sampling[0] > 0.0:
-        raise NotImplementedError(
-            "sampling with temperature > 0 is not ported yet; the port "
-            "decodes greedily")
-    return sampling
-
-
 class DecodeRunner:
     def __init__(self, model_bundle: dict, *, block_size: int,
                  trash_block: int, min_pages_bucket: int = 1,
@@ -183,10 +185,11 @@ class DecodeRunner:
         # at use would give)
         self._params = serving_params(model_bundle["params"])
         self.device = self._params["embed"]["table"].device
-        # ``seed`` keys the sampler's streams in the reference; greedy
-        # decoding draws nothing, so it is unused until the sampler lands
-        self._default_sampling = _check_greedy(np.asarray(
-            [temperature, float(top_k), top_p], np.float32))
+        # the runner-wide default row of the per-row (B, 3) [temperature,
+        # top_k, top_p] tensor, and the base key the per-row keys fold from
+        self._default_sampling = np.asarray(
+            [temperature, float(top_k), top_p], np.float32)
+        self._base_key = prng.key_words(seed)
         # bucket high-water marks (never shrink)
         self._pages_bucket = 0
         self._batch_bucket = 0
@@ -199,14 +202,18 @@ class DecodeRunner:
         self._bt = None                               # (B, P) int32
         self._ctx = None                              # (B,) int32
         self._tok = None                              # (B,) int32
-        self._keys = None                             # (B, 2) int32, zeros
+        self._keys = None                             # (B, 2) int64 words
         self._active = None                           # (B,) bool
         self._sampling = None                         # (B, 3) f32
         self._active_rows: frozenset = frozenset()
-        # the current bucket's captured step (None until its first step)
-        self._graph: Optional[_StepGraph] = None
-        self._step = functools.partial(self._step_nxt, self._params,
-                                       self.mb["cfg"])
+        # rows whose sampling row has temperature > 0 (host mirror)
+        self._sampled_rows: set = set()
+        # the current bucket's captured variants, keyed by ``sampled``
+        # (each captured at its first step)
+        self._graphs: Dict[bool, _StepGraph] = {}
+        self._steps = {sampled: functools.partial(
+            self._step_nxt, self._params, self.mb["cfg"], sampled=sampled)
+            for sampled in (False, True)}
         # deferred next-token sync: the rows' histories waiting for the
         # tokens queued into ``_host_nxt`` (pinned on CUDA) behind the
         # last step, and the event recorded after that copy
@@ -226,12 +233,30 @@ class DecodeRunner:
         admission targets exactly this size."""
         return self._batch_bucket
 
+    def _row_key(self, rid: int, salt: int = 0) -> np.ndarray:
+        """Position-independent per-row base key, folded from (seed, rid)
+        as the reference's ``_row_key``: the step folds the position in,
+        so the sampled stream is a pure function of (seed, rid, position)
+        under any preemption order, row re-registration or bucket rebuild.
+        ``salt`` separates the prefill first-token draw from the row's
+        decode stream.  Returns the (2,) int64 words."""
+        k = prng.fold_in_words(self._base_key, rid)
+        return np.asarray(prng.fold_in_words(k, salt) if salt else k,
+                          np.int64)
+
     def _row_sampling(self, view: DecodeRequestView) -> np.ndarray:
         """The (3,) f32 [temperature, top_k, top_p] row for ``view``."""
         if view.sampling is None:
             return self._default_sampling
         t, k, p = view.sampling
-        return _check_greedy(np.asarray([t, float(k), p], np.float32))
+        return np.asarray([t, float(k), p], np.float32)
+
+    def _mark_sampling(self, row: int, smp: np.ndarray) -> None:
+        """Keep the host mirror of which rows sample up to date."""
+        if smp[0] > 0.0:
+            self._sampled_rows.add(row)
+        else:
+            self._sampled_rows.discard(row)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return ops.to_device(a, self.device)
@@ -280,8 +305,10 @@ class DecodeRunner:
         bt = np.full((batch_bucket, pages_bucket), self.trash, np.int32)
         ctx = np.zeros((batch_bucket,), np.int32)
         tok = np.zeros((batch_bucket,), np.int32)
+        keys = np.zeros((batch_bucket, 2), np.int64)
         act = np.zeros((batch_bucket,), bool)
         smp = np.zeros((batch_bucket, 3), np.float32)
+        self._sampled_rows = set()
         for i, v in enumerate(views):
             ids = tuple(v.block_ids)
             self._rows[v.rid] = i
@@ -290,18 +317,20 @@ class DecodeRunner:
             bt[i, :len(ids)] = ids
             ctx[i] = self._row_ctx[i]
             tok[i] = v.token_history[-1]
+            keys[i] = self._row_key(v.rid)
             act[i] = True
             smp[i] = self._row_sampling(v)
+            self._mark_sampling(i, smp[i])
         self._free = list(range(len(views), batch_bucket))
-        # the new bucket's tensors: a new step variant, captured at its
-        # first step
-        self._graph = None
+        # the new bucket's tensors: new step variants, each captured at
+        # its first step
+        self._graphs = {}
         self._host_nxt = torch.empty((batch_bucket,), dtype=torch.int32,
                                      pin_memory=self._nxt_ready is not None)
         self._bt = self._dev(bt)
         self._ctx = self._dev(ctx)
         self._tok = self._dev(tok)
-        self._keys = self._dev(np.zeros((batch_bucket, 2), np.int32))
+        self._keys = self._dev(keys)
         self._active = self._dev(act)
         self._sampling = self._dev(smp)
         self._active_rows = frozenset(range(len(views)))
@@ -309,31 +338,37 @@ class DecodeRunner:
     def _scatter_rows(self, pending: Dict[int, Tuple[Tuple[int, ...],
                                                      Optional[int],
                                                      Optional[int],
+                                                     Optional[np.ndarray],
                                                      Optional[np.ndarray]]]
                       ) -> None:
         """One batched device write for the changed rows.  Entry value is
-        (block_ids, ctx, tok, sampling_row); the trailing three are None
-        for rows whose device counters are already right (block-table-only
-        write)."""
+        (block_ids, ctx, tok, key_words, sampling_row); the trailing four
+        are None for rows whose device counters are already right
+        (block-table-only write)."""
         if not pending:
             return
         pb = self._pages_bucket
-        entries = [(r, ids, c, t, sr)
-                   for r, (ids, c, t, sr) in sorted(pending.items())]
+        entries = [(r, ids, c, t, kd, sr)
+                   for r, (ids, c, t, kd, sr) in sorted(pending.items())]
         rows = self._dev(np.asarray([e[0] for e in entries], np.int64))
         btrows = np.full((len(entries), pb), self.trash, np.int32)
-        for j, (_, ids, _, _, _) in enumerate(entries):
+        for j, (_, ids, _, _, _, _) in enumerate(entries):
             btrows[j, :len(ids)] = ids
         self._bt[rows] = self._dev(btrows)
-        full = [(r, c, t, sr) for r, _, c, t, sr in entries if c is not None]
+        full = [(r, c, t, kd, sr)
+                for r, _, c, t, kd, sr in entries if c is not None]
         if full:
             frows = self._dev(np.asarray([f[0] for f in full], np.int64))
             self._ctx[frows] = self._dev(
                 np.asarray([f[1] for f in full], np.int32))
             self._tok[frows] = self._dev(
                 np.asarray([f[2] for f in full], np.int32))
+            self._keys[frows] = self._dev(
+                np.stack([np.asarray(f[3], np.int64) for f in full]))
             self._sampling[frows] = self._dev(
-                np.stack([np.asarray(f[3], np.float32) for f in full]))
+                np.stack([np.asarray(f[4], np.float32) for f in full]))
+            for r, _, _, _, sr in full:
+                self._mark_sampling(r, sr)
         self.stats.rows_updated += len(entries)
 
     def _set_active(self) -> None:
@@ -349,14 +384,17 @@ class DecodeRunner:
         # per-row pending write, keyed by row so a free + immediate
         # re-register of the same row collapses to one write
         pending: Dict[int, Tuple[Tuple[int, ...], Optional[int],
-                                 Optional[int], Optional[np.ndarray]]] = {}
+                                 Optional[int], Optional[np.ndarray],
+                                 Optional[np.ndarray]]] = {}
+        zero_key = np.zeros((2,), np.int64)
         zero_smp = np.zeros((3,), np.float32)
         for rid in [r for r in self._rows if r not in current]:
             row = self._rows.pop(rid)
             self._row_blocks[row] = ()
             self._row_ctx[row] = 0
             self._free.append(row)
-            pending[row] = ((), 0, 0, zero_smp)   # point at trash, mask off
+            # point at trash, mask off
+            pending[row] = ((), 0, 0, zero_key, zero_smp)
         for v in views:
             ids = tuple(v.block_ids)
             row = self._rows.get(v.rid)
@@ -367,6 +405,7 @@ class DecodeRunner:
                 self._row_blocks[row] = ids
                 self._row_ctx[row] = hist_ctx
                 pending[row] = (ids, hist_ctx, v.token_history[-1],
+                                self._row_key(v.rid),
                                 self._row_sampling(v))
             elif self._row_ctx[row] != hist_ctx:
                 # context jumped outside the decode loop (a turn-boundary
@@ -375,10 +414,11 @@ class DecodeRunner:
                 self._row_blocks[row] = ids
                 self._row_ctx[row] = hist_ctx
                 pending[row] = (ids, hist_ctx, v.token_history[-1],
+                                self._row_key(v.rid),
                                 self._row_sampling(v))
             elif ids != self._row_blocks[row]:
                 self._row_blocks[row] = ids       # page-boundary growth or
-                pending[row] = (ids, None, None, None)   # swap-in move
+                pending[row] = (ids, None, None, None, None)  # swap-in move
         self._scatter_rows(pending)
         active = frozenset(self._rows[v.rid] for v in views)
         if active != self._active_rows:
@@ -390,28 +430,32 @@ class DecodeRunner:
     # ------------------------------------------------------------------
 
     @staticmethod
-    def _step_nxt(params, cfg, *tensors) -> torch.Tensor:
+    def _step_nxt(params, cfg, *tensors, sampled: bool) -> torch.Tensor:
         """The step over ``tensors`` (``STEP_TENSORS``); its next tokens."""
-        return paged_decode_step_device(params, *tensors, cfg=cfg)[0]
+        return paged_decode_step_device(params, *tensors, cfg=cfg,
+                                        sampled=sampled)[0]
 
     def _step_tensors(self, pool) -> Tuple[torch.Tensor, ...]:
         return (pool, self._bt, self._ctx, self._tok, self._active,
                 self._keys, self._sampling)
 
     def graph_cache_size(self) -> int:
-        """Captured decode-step variants: one per (batch, pages) bucket
-        this runner has stepped at, as the reference's
-        ``jit_cache_size()`` counts one compiled variant per bucket.
-        Buckets only grow, so only the newest graph is kept."""
-        return self.stats.graphs_captured
+        """(batch, pages) buckets this runner has stepped at (each rebuild
+        opens one, and a step follows it), as the reference's
+        ``jit_cache_size()`` counts one compiled variant per bucket; a
+        bucket's argmax-only and sampled graphs count once.  Buckets only
+        grow, so only the newest bucket's graphs are kept."""
+        return self.stats.rebuilds
 
     def decode(self, views: List[DecodeRequestView], pool):
         """Launch one decode step for ``views`` against ``pool``.  The pool
         is written in place and returned (the caller rebinds, as with the
         reference's donated pool); it must stay the same tensor for the
         bucket's life.  The first step at a bucket runs eagerly and then
-        captures the bucket's graph; every later step replays it.  Next
-        tokens stay on the device until ``flush()``."""
+        captures the bucket's graph; every later step replays it.  A step
+        with an active row at temperature > 0 takes the bucket's sampled
+        variant, made the same way.  Next tokens stay on the device until
+        ``flush()``."""
         if not views:
             raise ValueError("decode() needs at least one request")
         self.flush()
@@ -425,13 +469,19 @@ class DecodeRunner:
         else:
             self._update_rows(views)
         tensors = self._step_tensors(pool)
-        if self._graph is None:
-            nxt = self._step(*tensors)
-            self._graph = _StepGraph(self._step, tensors)
+        sampled = not self._sampled_rows.isdisjoint(self._active_rows)
+        graph = self._graphs.get(sampled)
+        if graph is None:
+            step = self._steps[sampled]
+            nxt = step(*tensors)
+            self._graphs[sampled] = _StepGraph(step, tensors)
             self.stats.eager_steps += 1
-            self.stats.graphs_captured += 1
+            if sampled:
+                self.stats.sampled_graphs += 1
+            else:
+                self.stats.graphs_captured += 1
         else:
-            nxt = self._graph.replay(tensors)
+            nxt = graph.replay(tensors)
             self.stats.graph_replays += 1
         self._stage_tokens(nxt, [(self._rows[v.rid], v.token_history)
                                  for v in views])
@@ -463,6 +513,7 @@ class DecodeRunner:
         self._row_blocks[row] = ids
         self._row_ctx[row] = hist_ctx
         self._scatter_rows({row: (ids, hist_ctx, view.token_history[-1],
+                                  self._row_key(view.rid),
                                   self._row_sampling(view))})
         return True
 
@@ -477,7 +528,8 @@ class DecodeRunner:
         self._row_blocks[row] = ()
         self._row_ctx[row] = 0
         self._free.append(row)
-        self._scatter_rows({row: ((), 0, 0, np.zeros((3,), np.float32))})
+        self._scatter_rows({row: ((), 0, 0, np.zeros((2,), np.int64),
+                                  np.zeros((3,), np.float32))})
         if row in self._active_rows:
             self._active_rows = self._active_rows - {row}
             self._set_active()
@@ -589,13 +641,22 @@ class DecodeRunner:
         return ops.insert_prefill(pool, k, v, blocks, self.bs)
 
     def _prefill_emit(self, st: _PrefillState) -> None:
-        """Emit the response's first token (greedy) from the final chunk's
-        last real position."""
+        """Emit the response's first token from the final chunk's last real
+        position: drawn with the row's key salted by 1 at position
+        ``len(history)``, as the reference; the argmax at temperature 0."""
         if not st.emit_first or st.emitted:
             return
         hist = st.view.token_history
-        self._row_sampling(st.view)             # refuses temperature > 0
-        tok = sample_tokens(st.last_logits[None, :], None, None, None)
+        smp = self._row_sampling(st.view)
+        if smp[0] > 0.0:
+            tok = sample_tokens(
+                st.last_logits[None, :],
+                self._dev(self._row_key(st.view.rid, salt=1)[None, :]),
+                self._dev(np.asarray([len(hist)], np.int32)),
+                self._dev(smp[None, :]))
+        else:
+            tok = sample_tokens(st.last_logits[None, :], None, None, None,
+                                sampled=False)
         hist.append(int(tok[0]))
         st.emitted = True
 

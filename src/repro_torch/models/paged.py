@@ -12,10 +12,12 @@ was given and returns them, so the call sites keep the reference's
 "rebind to the result" form.  The per-layer KV write is a plain in-place
 index write on the pool.
 
-Sampling is greedy in this slice: the engine's runner refuses a row with
-temperature > 0 (``NotImplementedError``) before it reaches the step, so
-``sample_tokens`` takes the argmax.  The (B, 2) key slot is kept so the
-signatures match the reference and may hold zeros.
+Sampling (temperature / top-k / top-p) is fused into the step as in the
+reference, with the reference's random streams (``models/prng.py``).  The
+reference keeps an all-greedy step argmax-only through a batch-level
+``lax.cond``; a captured CUDA graph cannot branch on a device value, so
+the step takes ``sampled`` instead, fixed per captured variant: the
+runner knows on the host whether any active row samples.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import prng
 from repro_torch.models.transformer import check_supported, unstack_layers
 
 
@@ -84,26 +87,62 @@ def _decode_hidden(params, pool, block_tables, context_lens, tokens,
     return x[:, 0], pool
 
 
-def sample_tokens(logits, keys, ctx, sampling):
-    """Greedy next tokens (B,) int32: the argmax, first maximum on ties,
-    as ``jnp.argmax``.  ``keys`` (B, 2), ``ctx`` (B,) and ``sampling``
-    (B, 3) [temperature, top_k, top_p] keep the reference's signature;
-    rows with temperature > 0 are refused upstream, by the runner, where
-    the value is known on the host."""
-    return torch.argmax(logits.float(), dim=-1).to(torch.int32)
+def sample_tokens(logits, keys, ctx, sampling, *, sampled: bool = True):
+    """Fused temperature / top-k / top-p sampling, stateless per step.
+
+    The per-row draw key is ``fold_in(keys[i], ctx[i])``: ``keys`` holds
+    each row's position-independent base key (folded from (seed, rid)),
+    so the stream is a pure function of (seed, rid, position).  Rows with
+    ``temperature <= 0`` take the argmax, first maximum on ties, as
+    ``jnp.argmax``.  The top-k and nucleus thresholds and the mask compare
+    by value, so the order of tied logits in the sort does not matter.
+
+    logits: (B, V); keys: (B, 2) int64 threefry words (``models/prng.py``);
+    ctx: (B,) int positions; sampling: (B, 3) f32 per-row [temperature,
+    top_k, top_p] (top_k 0 = disabled).  ``sampled=False`` is the
+    argmax-only variant, for callers that know every row is greedy; it
+    reads neither ``keys``, ``ctx`` nor ``sampling``.  Returns (B,) int32.
+    Launches follow from shapes alone: no host synchronisation."""
+    B, V = logits.shape
+    logits = logits.float()
+    greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+    if not sampled:
+        return greedy
+    temp = sampling[:, 0]
+    top_k = sampling[:, 1].to(torch.int32)
+    top_p = sampling[:, 2]
+    scaled = logits / torch.clamp(temp, min=1e-6)[:, None]
+    sorted_lg = torch.sort(scaled, dim=-1, descending=True).values
+    k_eff = torch.clamp(torch.where(top_k > 0, top_k, V), 1, V)
+    kth = sorted_lg.gather(1, (k_eff - 1).long()[:, None])
+    probs = torch.softmax(sorted_lg, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    # nucleus: keep the smallest prefix whose mass reaches top_p (the
+    # mass BEFORE an index must be < top_p; index 0 is always kept)
+    keep = (cum - probs) < top_p[:, None]
+    pth = torch.where(keep, sorted_lg, math.inf).min(dim=-1,
+                                                     keepdim=True).values
+    masked = torch.where(scaled >= torch.maximum(kth, pth), scaled,
+                         -math.inf)
+    g = prng.gumbel(prng.fold_in(keys, ctx), (V,))
+    drawn = torch.argmax(masked + g, dim=-1).to(torch.int32)
+    return torch.where(temp > 0.0, drawn, greedy)
 
 
 def _device_step_core(params, pool, block_tables, context_lens, tokens,
-                      active, keys, sampling, cfg: ModelConfig):
+                      active, keys, sampling, cfg: ModelConfig,
+                      sampled: bool = True):
     """One decode step.  Returns (next_tokens, pool, new_ctx, new_tokens);
     ``pool``, ``context_lens`` and ``tokens`` are updated in place.  The
-    runner captures this body as a CUDA graph per bucket, so it must not
-    synchronise with the host: every launch follows from shapes alone."""
+    runner captures this body as a CUDA graph per bucket and variant, so
+    it must not synchronise with the host: every launch follows from
+    shapes and ``sampled`` alone."""
     x_last, pool = _decode_hidden(params, pool, block_tables, context_lens,
                                   tokens, cfg)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     logits = L.unembed(head, x_last)
-    nxt = sample_tokens(logits, keys, context_lens, sampling)
+    nxt = sample_tokens(logits, keys, context_lens, sampling,
+                        sampled=sampled)
     context_lens.add_(active.to(context_lens.dtype))
     tokens.copy_(torch.where(active, nxt, tokens))
     return nxt, pool, context_lens, tokens
@@ -111,18 +150,20 @@ def _device_step_core(params, pool, block_tables, context_lens, tokens,
 
 def paged_decode_step_device(params, pool, block_tables, context_lens,
                              tokens, active, keys, sampling, *,
-                             cfg: ModelConfig):
+                             cfg: ModelConfig, sampled: bool = True):
     """Device-resident decode step for the DecodeRunner.
 
     pool: (L, 2, nb, bs, Hkv, D) bf16; block_tables: (B, n_pages) int32;
     context_lens: (B,) int32 tokens already cached; tokens: (B,) int32
     current inputs; active: (B,) bool rows decoding this step (inactive
     rows keep their state; their trash-directed compute is discarded);
-    keys: (B, 2); sampling: (B, 3) f32.  pool, context_lens and tokens
-    are written in place (the reference donates them).
-    Returns (next_tokens, pool, context_lens, tokens)."""
+    keys: (B, 2) int64 per-row base threefry keys; sampling: (B, 3) f32
+    per-row [temperature, top_k, top_p]; ``sampled=False``: the
+    argmax-only variant, valid when no row has temperature > 0.  pool,
+    context_lens and tokens are written in place (the reference donates
+    them).  Returns (next_tokens, pool, context_lens, tokens)."""
     return _device_step_core(params, pool, block_tables, context_lens,
-                             tokens, active, keys, sampling, cfg)
+                             tokens, active, keys, sampling, cfg, sampled)
 
 
 def _prefill_chunk_core(params, tokens, k_carry, v_carry, prefix_len: int,

@@ -424,6 +424,90 @@ def test_graph_check_catches_a_replay_that_differs_from_eager(monkeypatch):
         pool = runner.decode([DecodeRequestView(0, [0], hist)], pool)
         with pytest.raises(AssertionError, match="differs from the eager"):
             runner.decode([DecodeRequestView(0, [0], hist)], pool)
-    assert held == [{"bucket": [1, 1], "byte_equal": {
+    assert held == [{"bucket": [1, 1], "sampled": False, "byte_equal": {
         "nxt": True, "pool": True, "context_lens": False, "tokens": True}}]
     assert dr._StepGraph.replay is off_by_one      # restored on exit
+
+
+# ---------------------------------------------------------------------------
+# phases 5b (sampling) and 5d (serve), at smoke size on the CPU
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def sampled_held(served):
+    """The sampling phase's first run, with the ``graphs`` check over it:
+    (engine, requests, checked variants)."""
+    bundle = served[0]
+    with chip_smoke.replays_held_to_eager() as held:
+        eng, convs = chip_smoke.run_sampling(bundle)
+    return eng, convs, held
+
+
+def test_sampling_phase_serves_both_variants(served, sampled_held):
+    bundle = served[0]
+    eng, convs, held = sampled_held
+    stats = chip_smoke.check_sampling(eng, convs)
+    assert stats["sampled_graphs"] >= 1 and stats["buckets"] >= 1
+    assert any(c["sampled"] for c in held)
+    assert all(all(c["byte_equal"].values()) for c in held)
+    for c in convs:
+        if c.conv_id % 2:
+            r = chip_smoke.check_sampled_tokens(eng, bundle, c,
+                                                chip_smoke.SAMPLING)
+            assert r["equal"] + len(r["near_ties"]) == r["generated"] == 32
+        else:
+            r = chip_smoke.check_tokens(eng, bundle, c)
+            assert r["max_gap"] < r["tolerance"]
+    again, _ = chip_smoke.run_sampling(bundle)
+    assert again._token_hist_by_conv == eng._token_hist_by_conv
+    plain, _ = chip_smoke.run_sampling(bundle, sampling=None)
+    assert plain.runner.stats.sampled_graphs == 0
+    for c in convs:
+        same = plain._token_hist_by_conv[c.conv_id] == \
+            eng._token_hist_by_conv[c.conv_id]
+        assert same == (c.conv_id % 2 == 0)
+    assert chip_smoke.threefry_on_card_equals_cpu("cpu", vocab=1024) \
+        == 8 * 1024
+
+
+def test_sampling_phase_catches_a_wrong_sampled_token(served,
+                                                      sampled_held):
+    """The least likely token in place of a drawn one is no near-tie."""
+    import torch as th
+    from repro_torch.models import transformer as T
+    bundle = served[0]
+    eng, convs, _ = sampled_held
+    conv = convs[1]
+    hist = eng._token_hist_by_conv[1]
+    i = conv.turns[0].prompt_tokens + 5
+    with th.no_grad():
+        logits, _ = T.forward_seq(bundle["params"], bundle["cfg"],
+                                  th.tensor([hist[:i]]))
+    saved = hist[i]
+    hist[i] = int(logits[0, -1].argmin())
+    try:
+        with pytest.raises(AssertionError, match="no near-tie"):
+            chip_smoke.check_sampled_tokens(eng, bundle, conv,
+                                            chip_smoke.SAMPLING, tol=1e-9)
+    finally:
+        hist[i] = saved
+
+
+def test_serve_phase_runs_the_launcher(tmp_path):
+    """The serve phase's two launcher runs, on the CPU at the reduced
+    width with two conversations: both policies report, the event log is
+    well-formed, and no hand-written kernel launched (the plain versions
+    run on the CPU)."""
+    out = chip_smoke.serve_phase(tmp_path, device="cpu", conversations=2)
+    pols = out["replay"]["policies"]
+    assert set(pols) == {"vllm", "fastswitch"}
+    assert all(p["total_tokens"] > 0 and p["callstack_wall_s"] > 0
+               for p in pols.values())
+    assert pols["fastswitch"]["kernel_launches"]["paged_attention"] == 0
+    assert out["online_smoke"]["events"] > 0
+
+
+def test_serve_phase_fails_on_a_failed_launcher_run(tmp_path):
+    with pytest.raises(AssertionError, match="exited"):
+        chip_smoke.run_launcher(["--serve"], tmp_path)

@@ -8,7 +8,11 @@
     gives the reference's tokens;
   * the bucket's tensors keep their addresses across row churn, a replay
     over a moved pool raises, and the launch counts of a captured graph
-    are added at each replay.
+    are added at each replay;
+  * with sampled rows mixed in, a bucket gets a second (sampled) variant
+    at its first sampled step, the variant count still equals the
+    reference's jit cache, and the greedy rows give the tokens of an
+    all-greedy run.
 
 The churn run (``churn_steps``) is the card tests' own, from
 tests/test_torch_gpu_graphs.py.
@@ -33,7 +37,7 @@ from repro_torch.core.decode_runner import DecodeRequestView, DecodeRunner
 from repro_torch.kernels import launches
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from test_torch_gpu_graphs import churn_pools, churn_steps
+from test_torch_gpu_graphs import churn_pools, churn_steps, mixed_churn
 
 # the bound of tests/test_torch_model.py on bf16 K/V against the reference
 # (XLA keeps fused bf16 intermediates in fp32): per element and on the mean
@@ -207,13 +211,83 @@ def test_cpu_replay_runs_the_step_body_over_the_same_tensors(models):
     runner = DecodeRunner(tb, block_size=BS, trash_block=7)
     hist = [3]
     pool = runner.decode([DecodeRequestView(0, [0], hist)], pool)
-    graph = runner._graph
+    graph = runner._graphs[False]
     assert graph.graph is None and graph.launches == collections.Counter()
     nxt = graph.nxt
     tensors = runner._step_tensors(pool)
     assert [t.data_ptr() for t in tensors] == list(graph._ptrs)
     assert dict(zip(dr.STEP_TENSORS, tensors))["context_lens"] is runner._ctx
     pool = runner.decode([DecodeRequestView(0, [0], hist)], pool)
-    assert runner._graph is graph and graph.nxt is nxt
+    assert runner._graphs[False] is graph and graph.nxt is nxt
     runner.flush()
     assert hist[-1] == int(nxt[0]) and len(hist) == 3
+
+
+# ---------------------------------------------------------------------------
+# sampled rows: a second variant per bucket
+# ---------------------------------------------------------------------------
+
+
+def test_mixed_churn_adds_sampled_variants(models):
+    """The churn run with request 1 sampling: bucket (4, 4) steps both
+    variants, the other buckets one; the greedy requests' histories equal
+    the all-greedy run's, request 1's do not."""
+    _, tb = models
+    greedy, g_hist, mixed, m_hist, _ = mixed_churn(tb, "cpu")
+    st = mixed.stats
+    assert (st.graphs_captured, st.sampled_graphs, st.eager_steps) == \
+        (3, 3, 6)
+    assert st.graph_replays == st.steps - 6 == 42
+    assert mixed.graph_cache_size() == greedy.graph_cache_size() \
+        == st.rebuilds == 5
+    # bucket (4, 4) kept its sampled graph past its argmax-only one (no
+    # second sampled capture there); the last bucket stepped sampled only
+    assert set(mixed._graphs) == {True}
+    assert greedy.stats.sampled_graphs == 0
+    assert {r: h for r, h in m_hist.items() if r != 1} == \
+        {r: h for r, h in g_hist.items() if r != 1}
+    assert m_hist[1] != g_hist[1]
+
+
+def test_sampled_variants_count_as_the_reference_jit(models):
+    """A greedy and a sampled request through both runners over growing
+    buckets: as many buckets in the port as compiled variants in the
+    reference (a sampled row adds a graph, not a bucket), the greedy
+    row's tokens equal, the sampled row's equal or first apart at a
+    stated near-tie (tests/test_torch_sampling_engine.py)."""
+    from test_torch_sampling_engine import explain_divergence
+    jb, tb = models
+    cfg = jb["cfg"]
+    nb, n_steps = 20, 22
+    shape = (cfg.n_layers, 2, nb, BS, cfg.n_kv_heads, cfg.resolved_head_dim)
+    jrunner = JaxDecodeRunner(jb, block_size=BS, trash_block=nb - 1, seed=5)
+    trunner = DecodeRunner(tb, block_size=BS, trash_block=nb - 1, seed=5)
+    jpool = jnp.zeros(shape, jnp.bfloat16)
+    tpool = torch.zeros(shape, dtype=torch.bfloat16)
+    c0 = JaxDecodeRunner.jit_cache_size()
+    smp = (0.8, 0, 0.9)
+    jh, th = {0: [7], 1: [11]}, {0: [7], 1: [11]}
+    for ctx in range(n_steps):
+        rids = [0] if ctx < 3 else [0, 1]
+        for runner, View, hist, pool in ((jrunner, JaxView, jh, "j"),
+                                         (trunner, DecodeRequestView, th,
+                                          "t")):
+            views = [View(r, [8 * r + b for b in
+                              range((len(hist[r]) - 1) // BS + 1)],
+                          hist[r], smp if r == 1 else None) for r in rids]
+            if pool == "j":
+                jpool = runner.decode(views, jpool)
+            else:
+                tpool = runner.decode(views, tpool)
+    jrunner.flush()
+    trunner.flush()
+    st = trunner.stats
+    assert trunner.graph_cache_size() == \
+        JaxDecodeRunner.jit_cache_size() - c0 == st.rebuilds
+    assert st.sampled_graphs >= 1 and st.graphs_captured >= 1
+    assert st.eager_steps == st.graphs_captured + st.sampled_graphs
+    assert th[0] == jh[0]
+    if th[1] != jh[1]:
+        why = explain_divergence(tb, th[1], jh[1], rid=1, seed=5,
+                                 sampling=smp, first_tokens=())
+        assert why, (th[1], jh[1])

@@ -218,15 +218,14 @@ def test_port_refuses_what_it_does_not_serve(bundles):
         ServingEngine(replace(cfg, mesh_shape=(1, 2)), model_bundle=tb)
     with pytest.raises(NotImplementedError):
         ServingEngine(replace(cfg, prefix_cache=True), model_bundle=tb)
-    with pytest.raises(NotImplementedError):
-        ServingEngine(replace(cfg, temperature=0.7), model_bundle=tb)
-    eng = ServingEngine(cfg, model_bundle=tb)
+    # sampling is served now: a request with temperature > 0 finishes
+    eng = ServingEngine(replace(cfg, temperature=0.7), model_bundle=tb)
     eng.add_request(list(range(1, 20)),
                     SamplingParams(max_tokens=4, temperature=0.5))
     outs = []
     while eng.has_work():
         outs.extend(eng.step())
-    assert any(o.finish_reason == "error" for o in outs)
+    assert [o.finish_reason for o in outs if o.finished] == ["length"]
 
 
 # ---------------------------------------------------------------------------

@@ -47,13 +47,19 @@ def assert_close_bf16(got, want, tol, mean_tol=MEAN_TOL):
     assert float(np.mean(np.abs(got - want))) < mean_tol
 
 
-@pytest.fixture(scope="module")
-def model():
-    cfg = jax_configs.get_smoke_config(ARCH)
+def smoke_models(arch: str):
+    """(reference cfg, reference params, port cfg, port params) of the
+    arch's smoke config, the port's converted from the reference's."""
+    cfg = jax_configs.get_smoke_config(arch)
     jparams = jax_T.init_params(cfg, jax.random.PRNGKey(0))
     tparams = T.params_from_numpy(jax.tree.map(np.asarray, jparams),
                                   device="cpu")
-    return cfg, jparams, configs.get_smoke_config(ARCH), tparams
+    return cfg, jparams, configs.get_smoke_config(arch), tparams
+
+
+@pytest.fixture(scope="module")
+def model():
+    return smoke_models(ARCH)
 
 
 @pytest.mark.parametrize("getter", ["get_config", "get_smoke_config"])
@@ -61,7 +67,7 @@ def test_config_matches_reference(getter):
     want = getattr(jax_configs, getter)(ARCH)
     got = getattr(configs, getter)(ARCH)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
-    assert configs.list_archs() == [ARCH]
+    assert configs.list_archs() == [ARCH, "llama3.2-3b", "mistral-nemo-12b"]
     assert count_params_analytic(got) == jax_count(want)
 
 
@@ -118,6 +124,10 @@ def test_layers_match_reference():
 
 
 def test_forward_seq_matches_reference(model):
+    check_forward_seq(model)
+
+
+def check_forward_seq(model):
     cfg, jparams, tcfg, tparams = model
     toks = np.random.default_rng(1).integers(1, cfg.vocab_size, (2, 24))
     jlogits, (jk, _), _ = jax_T.forward_seq(jparams, cfg, jnp.asarray(toks))
@@ -127,6 +137,10 @@ def test_forward_seq_matches_reference(model):
 
 
 def test_decode_step_matches_reference(model):
+    check_decode_step(model)
+
+
+def check_decode_step(model):
     """One ``paged_decode_step_device`` step on both sides from the same
     pool bytes: equal greedy tokens, equal context/token updates, and the
     pool's new K/V rows within bf16 tolerance (everything else in the
@@ -154,7 +168,7 @@ def test_decode_step_matches_reference(model):
     tctx, ttok = _t(ctx).clone(), _t(tok).clone()
     n, tpool, tctx, ttok = paged_decode_step_device(
         T.serving_params(tparams), tpool, _t(bt), tctx, ttok, _t(active),
-        _t(keys.astype(np.int32)), _t(smp), cfg=tcfg)
+        _t(keys.astype(np.int64)), _t(smp), cfg=tcfg)
     np.testing.assert_array_equal(n.numpy()[:3], np.asarray(jn)[:3])
     np.testing.assert_array_equal(tctx.numpy(), np.asarray(jctx))
     np.testing.assert_array_equal(ttok.numpy()[:3], np.asarray(jtok)[:3])
