@@ -64,6 +64,25 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                kernel launches) and the online smoke with its event log
                passed through ``validate_event_log``; a non-zero exit
                fails the script.
+  5e. frontend — ``FrontendServer`` over two full-width real replicas on
+               the card (one parameter bundle, a pool each: 64 GPU and 256
+               CPU blocks, max 4 running, max batch 4, fastswitch) on
+               127.0.0.1, port 0: the loopback smoke's clients (submit,
+               stream, follow-up, abort) with token-id prompts, two
+               sessions moved between the replicas with their shipped KV
+               held byte for byte against what the target installed, then
+               a drain; every replica's event log well-formed, no affinity
+               violation, every streamed token the dense argmax or a
+               near-tie, and paged attention and both run copies launched
+               on each replica's pool (counts set to 0 just before; per
+               replica, and their sum).  Then the launcher's ``--serve
+               --router 2 --real`` as a subprocess: one session finishes,
+               and an interrupt stops it with exit code 0.
+  5f. prefix — the launcher's ``--online --real --prefix-cache --smoke``
+               (prefix hits, tokens saved, the C1/C2 sanitizer on every
+               step, a well-formed event log, its kernels launched) and the
+               same smoke with the cache off: each conversation's greedy
+               tokens equal, or the first difference a near-tie.
   6. device_times — the device time of each phase-3 kernel and library
                call alone: their CUDA kernels under ``torch.profiler``, the
                wrapper's host time left out.  After the engine phases,
@@ -984,6 +1003,19 @@ def check_tokens(eng, bundle, conv, tol: float = NEAR_TIE) -> dict:
     if len(hist) != pos:
         raise AssertionError(f"history holds {len(hist)} tokens, the turns "
                              f"{pos}")
+    return {"conv": conv.conv_id,
+            **check_history(bundle, hist, generated, tol)}
+
+
+def check_history(bundle, hist, generated, tol: float = NEAR_TIE) -> dict:
+    """Teacher-force ``hist`` through the plain dense forward once; the
+    token at each position in ``generated`` must be the dense argmax
+    there, or within ``tol`` of the dense maximum (a near-tie)."""
+    import torch
+    from repro_torch.models import transformer as T
+    if not generated:
+        return {"generated": 0, "equal": 0, "near_ties": 0, "max_gap": 0.0,
+                "tolerance": tol}
     device = bundle["params"]["embed"]["table"].device
     toks = torch.tensor([hist], dtype=torch.long, device=device)
     with torch.no_grad():
@@ -998,9 +1030,27 @@ def check_tokens(eng, bundle, conv, tol: float = NEAR_TIE) -> dict:
         i = int(gap.argmax())
         raise AssertionError(f"token {generated[i]}: the engine's token is "
                              f"{worst} below the dense maximum (>= {tol})")
-    return {"conv": conv.conv_id, "generated": len(generated),
-            "equal": equal, "near_ties": len(generated) - equal,
-            "max_gap": worst, "tolerance": tol}
+    return {"generated": len(generated), "equal": equal,
+            "near_ties": len(generated) - equal, "max_gap": worst,
+            "tolerance": tol}
+
+
+def first_divergence(bundle, a, b):
+    """(position, |logit gap| of the two tokens there under the plain
+    dense forward of the shared prefix) of the first position where the
+    token lists ``a`` and ``b`` differ; None where one is a prefix of the
+    other."""
+    import torch
+    from repro_torch.models import transformer as T
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            device = bundle["params"]["embed"]["table"].device
+            toks = torch.tensor([a[:i]], dtype=torch.long, device=device)
+            with torch.no_grad():
+                logits, _ = T.forward_seq(bundle["params"], bundle["cfg"],
+                                          toks)
+            return i, float((logits[0, -1, x] - logits[0, -1, y]).abs())
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -1249,6 +1299,310 @@ def serve_phase(out_dir: Path, device: str = "cuda",
 
 
 # ---------------------------------------------------------------------------
+# phase 5e: the network front-end over two replicas
+# ---------------------------------------------------------------------------
+
+# the launcher's real-mode defaults (``run_serve``, ``run_online``)
+REPLICA = dict(num_gpu_blocks=64, num_cpu_blocks=256, max_running=4,
+               max_batch=4)
+
+
+def session_kv(eng, handle):
+    """The bytes of a parked session's CPU reuse copy (its valid prefix),
+    once every in-flight copy writing them has landed.  Run it on the
+    replica's thread."""
+    import numpy as np
+    meta = eng.reuse.export_copy(handle)
+    nblk = -(-eng.reuse.valid_tokens(handle) // eng.config.block_size)
+    ids = meta["block_ids"][:nblk]
+    for f in eng.swap.data_deps(ids):
+        f.result()
+    return eng.pools.cpu[:, :, np.asarray(ids)].copy()
+
+
+async def migrate_sessions(srv, vocab: int, n: int = 2) -> list:
+    """Through ``srv`` (a started ``FrontendServer`` over two replicas):
+    ``n`` sessions, one after the other, each submitted, parked and then
+    moved by ``FrontendServer.migrate``: the first to the replica it did
+    not land on, every later one to the replica the first landed on
+    (where it landed there, it stays), so each replica swaps a moved
+    session in.  Before a session's
+    follow-up, its shipped KV must equal the bytes the target installed.
+    Returns, per session, its replicas, whether it moved (its KV then
+    arrived byte-equal), the valid tokens shipped and its turns (prompt,
+    streamed tokens)."""
+    import asyncio
+    import numpy as np
+    from repro_torch.data.sharegpt import synth_prompt_ids
+    reader, writer = await asyncio.open_connection(srv.host, srv.port)
+
+    async def turn(msg):
+        writer.write(json.dumps(msg).encode() + b"\n")
+        await writer.drain()
+        evs = []
+        while not evs or evs[-1]["event"] not in ("finish", "error"):
+            evs.append(json.loads(await asyncio.wait_for(reader.readline(),
+                                                          600)))
+        if evs[-1]["event"] == "error":
+            raise AssertionError(f"front-end refused {msg}: {evs[-1]}")
+        acc = next(e for e in evs if e["event"] == "accepted")
+        return acc, [t for e in evs if e["event"] == "token"
+                     for t in e["token_ids"]]
+
+    moved, first_src = [], None
+    for i in range(n):
+        p0 = synth_prompt_ids(900 + i, 0, 40, vocab)
+        p1 = synth_prompt_ids(900 + i, 1, 12, vocab)
+        acc, t0 = await turn({"op": "submit", "client": "migrant",
+                              "prompt": p0, "max_tokens": 8})
+        h, src = acc["handle"], acc["replica"]
+        if first_src is None:
+            first_src, home = src, 1 - src
+        else:
+            home = first_src
+        payload = await srv.migrate(h, home)
+        if payload is None and src != home:
+            raise AssertionError(f"session {h}: the move {src} -> {home} "
+                                 "was refused")
+        valid = 0
+        if payload is not None:
+            dst = srv.replicas[home]
+            got = await asyncio.wrap_future(dst.call(session_kv, dst.engine,
+                                                     h))
+            valid = payload["valid_tokens"]
+            if valid <= 0 or not np.array_equal(got, payload["kv"]):
+                raise AssertionError(f"session {h}: the KV installed on "
+                                     f"replica {home} differs from the "
+                                     "bytes shipped")
+        acc1, t1 = await turn({"op": "continue", "handle": h, "prompt": p1,
+                               "max_tokens": 8})
+        if acc1["replica"] != home:
+            raise AssertionError(f"session {h}: its follow-up went to "
+                                 f"replica {acc1['replica']}, not {home}")
+        writer.write(json.dumps({"op": "release",
+                                 "handle": h}).encode() + b"\n")
+        await writer.drain()
+        moved.append({"handle": h, "from": src, "to": home,
+                      "moved": payload is not None, "valid_tokens": valid,
+                      "turns": [(p0, t0), (p1, t1)]})
+    writer.close()
+    await writer.wait_closed()
+    return moved
+
+
+def stream_checks(bundle, sessions) -> dict:
+    """Each session's streamed tokens (a list of (prompt, tokens) turns)
+    against the plain dense forward of its history."""
+    out = {"sessions": 0, "generated": 0, "equal": 0, "near_ties": 0,
+           "max_gap": 0.0}
+    for turns in sessions:
+        hist, generated = [], []
+        for prompt, tokens in turns:
+            hist += list(prompt)
+            generated += range(len(hist), len(hist) + len(tokens))
+            hist += list(tokens)
+        r = check_history(bundle, hist, generated)
+        out["sessions"] += 1
+        for k in ("generated", "equal", "near_ties"):
+            out[k] += r[k]
+        out["max_gap"] = max(out["max_gap"], r["max_gap"])
+    return out
+
+
+def frontend_phase(bundle, out_dir: Path) -> dict:
+    """``FrontendServer`` over two real replicas sharing ``bundle``, each
+    with a pool of the launcher's default size, on 127.0.0.1, port 0: the
+    loopback smoke's clients (submit, stream, follow-up, abort) with
+    token-id prompts, then two sessions moved between the replicas
+    (``migrate_sessions``), then a drain.  Every replica's event log is
+    well-formed, the affinity audit finds no violation, every streamed
+    token is the dense argmax or a near-tie, and paged attention and both
+    run copies ran on each replica's pool (launch counts set to 0 just
+    before)."""
+    from repro_torch.core import EngineConfig, ServingEngine
+    from repro_torch.frontend import loadgen
+    from repro_torch.kernels import launches
+    from repro_torch.launch.serve import _serving_kernels
+    engines = []
+
+    def make_engines(mk_sink):
+        cfg = EngineConfig(mode="real", seed=SEED,
+                           **REPLICA).with_policy("fastswitch")
+        engines.extend(ServingEngine(cfg, model_bundle=bundle,
+                                     event_sink=mk_sink(i),
+                                     stream_tokens=True) for i in range(2))
+        return engines
+
+    def after(srv):
+        return migrate_sessions(srv, bundle["cfg"].vocab_size)
+
+    kernels = _serving_kernels()
+    launches.reset(*kernels.values())
+    t0 = time.perf_counter()
+    res = loadgen.run_smoke(str(out_dir / "frontend"), make_engines,
+                            vocab=bundle["cfg"].vocab_size, after=after)
+    for eng in engines:
+        eng.shutdown()             # the last swap-outs' copies land
+    wall = time.perf_counter() - t0
+    per_replica = [{name: launches.on(fn, eng.pools.gpu)
+                    for name, fn in kernels.items()} for eng in engines]
+    total = {name: fn.launches for name, fn in kernels.items()}
+    swaps = [{d: eng.swap.ops_by_dir[d] for d in ("in", "out")}
+             for eng in engines]
+    if any(min(s.values()) <= 0 for s in swaps):
+        raise AssertionError(f"a replica swapped no KV one way: {swaps}")
+    if bundle["params"]["embed"]["table"].is_cuda:
+        if any(min(c.values()) <= 0 for c in per_replica):
+            raise AssertionError(f"a kernel never launched on a replica's "
+                                 f"pool: {per_replica}")
+        if {n: sum(c[n] for c in per_replica) for n in total} != total:
+            raise AssertionError(f"launches per replica {per_replica} do "
+                                 f"not sum to the process's {total}")
+    sessions = [[(t["prompt"], t["tokens"]) for t in turns]
+                for c in res["clients"] for turns in c["turns"].values()]
+    moved = res["after"]
+    tokens = stream_checks(bundle, sessions + [m["turns"] for m in moved])
+    for m in moved:
+        del m["turns"]
+    return {"wall_s": wall, "replicas": res["replicas"],
+            "turns_finished": res["turns_finished"],
+            "affinity_violations": res["affinity_violations"],
+            "events_validated": len(res["events_validated"]),
+            "migrations": moved, "launches_per_replica": per_replica,
+            "launches": total, "launch_count": "per replica (each pool) "
+            "and their sum over the process", "swap_ops_per_replica": swaps,
+            "tokens": tokens}
+
+
+def serve_one_session(argv, prompt, timeout: float = 600.0) -> dict:
+    """Boot ``python -m repro_torch.launch.serve --serve --port 0 ARGV``
+    from the checkout's root, send one session of ``prompt`` (token ids)
+    over a socket, read its events to the ``finish``, then interrupt the
+    server while the client is still connected.  Returns the events, the
+    server's output lines, its exit code and stderr, and the wall
+    seconds."""
+    import os
+    import re
+    import signal
+    import socket
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--serve",
+         "--port", "0", *argv], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env)
+    try:
+        first = proc.stdout.readline().strip()
+        m = re.match(r"frontend: .* on (\S+):(\d+)$", first)
+        if not m:
+            proc.kill()
+            raise AssertionError(f"the front-end did not start: {first!r} "
+                                 f"{proc.communicate()[1][-2000:]}")
+        events = []
+        with socket.create_connection((m[1], int(m[2])),
+                                      timeout=timeout) as sock, \
+                sock.makefile("rw") as f:
+            f.write(json.dumps({"op": "submit", "id": "s0", "client": "t",
+                                "prompt": prompt, "max_tokens": 4}) + "\n")
+            f.flush()
+            while not events or events[-1].get("event") not in (
+                    "finish", "error"):
+                line = f.readline()
+                if not line:
+                    raise AssertionError(f"the front-end closed the "
+                                         f"connection after {events}")
+                events.append(json.loads(line))
+            proc.send_signal(signal.SIGINT)
+            out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    return {"events": events, "stdout": [first, *out.splitlines()],
+            "returncode": proc.returncode, "stderr": err,
+            "wall_s": time.perf_counter() - t0}
+
+
+def serve_frontend_phase(device: str = "cuda") -> dict:
+    """The launcher's ``--serve --router 2 --real`` on ``device`` as a
+    subprocess: one session finishes by length with its 4 tokens, and an
+    interrupt stops the server with exit code 0."""
+    run = serve_one_session(["--router", "2", "--real", "--device", device,
+                             "--stream"], list(range(3, 67)))
+    last = run["events"][-1]
+    tokens = [t for e in run["events"] if e["event"] == "token"
+              for t in e["token_ids"]]
+    if run["returncode"] != 0 or last.get("reason") != "length" \
+            or len(tokens) != 4:
+        raise AssertionError(f"serve --router 2: exit {run['returncode']}, "
+                             f"events {run['events']}, "
+                             f"stderr {run['stderr'][-2000:]}")
+    return {"wall_s": run["wall_s"], "tokens": len(tokens),
+            "finish": last["reason"], "stdout": run["stdout"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 5f: the prefix cache
+# ---------------------------------------------------------------------------
+
+
+def prefix_phase(bundle, out_dir: Path, device: str = "cuda") -> dict:
+    """The launcher's ``--online --real --prefix-cache --smoke`` on
+    ``device`` (hits, tokens saved and the C1/C2 sanitizer on every step
+    are its own asserts; its event log must be well-formed), and the same
+    run with the cache off (``--system-prompt``: the same shared system
+    prompt opens each conversation): every conversation's greedy tokens
+    equal, or
+    the first difference a near-tie under the dense forward of
+    ``bundle`` (the launcher's weights: the same seed)."""
+    from repro_torch.launch.serve import validate_event_log
+    events = out_dir / "prefix_events.jsonl"
+    args = ["--online", "--real", "--smoke", "--device", device]
+    on = run_launcher([*args, "--prefix-cache", "--events", str(events)],
+                      out_dir)
+    off = run_launcher([*args, "--system-prompt"], out_dir)
+    r = on["results"]
+    if not (r["prefix_hits"] > 0 and r["prefix_tokens_saved"] > 0
+            and r["invariant_checks"] > 0):
+        raise AssertionError(f"prefix smoke: hits {r['prefix_hits']}, "
+                             f"saved {r['prefix_tokens_saved']}, sanitizer "
+                             f"checks {r['invariant_checks']}")
+    launched = r["kernel_launches"]
+    if device == "cuda" and min(launched.values()) <= 0:
+        raise AssertionError(f"prefix smoke: a kernel never launched: "
+                             f"{launched}")
+    h_on = r["token_histories"]
+    h_off = off["results"]["token_histories"]
+    common = sorted(set(h_on) & set(h_off), key=int)
+    if not common:
+        raise AssertionError("no conversation finished a turn in both runs")
+    equal, ties = 0, []
+    for c in common:
+        d = first_divergence(bundle, h_on[c], h_off[c])
+        if d is None:
+            equal += 1
+        elif d[1] >= NEAR_TIE:
+            raise AssertionError(f"conversation {c}: cache on and off "
+                                 f"differ at {d[0]} with gap {d[1]}")
+        else:
+            ties.append({"conv": int(c), "position": d[0], "gap": d[1]})
+    return {"wall_s": on["wall_s"], "off_wall_s": off["wall_s"],
+            "events": validate_event_log(str(events)),
+            "prefix": r["prefix"], "prefix_hits": r["prefix_hits"],
+            "prefix_tokens_saved": r["prefix_tokens_saved"],
+            "invariant_checks": r["invariant_checks"],
+            "kernel_launches": launched,
+            "off_kernel_launches": off["results"]["kernel_launches"],
+            "total_tokens": r["total_tokens"],
+            "off_total_tokens": off["results"]["total_tokens"],
+            "conversations_compared": len(common),
+            "conversations_equal": equal, "near_ties": ties,
+            "tolerance": NEAR_TIE, "callstack_wall_s": r["callstack_wall_s"],
+            "stdout": on["stdout"][-4:]}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1462,6 +1816,18 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         emit("serve", nvidia_smi=smi[0], **serve_phase(Path(tmp)))
 
+    # 5e. the network front-end over two replicas on the card, then the
+    # launcher's --serve --router 2 in a subprocess
+    with tempfile.TemporaryDirectory() as tmp:
+        fe = frontend_phase(bundle, Path(tmp))
+    emit("frontend", nvidia_smi=smi[0], **fe,
+         launcher=serve_frontend_phase())
+
+    # 5f. the prefix cache, through the launcher, against the cache off
+    with tempfile.TemporaryDirectory() as tmp:
+        px = prefix_phase(bundle, Path(tmp))
+    emit("prefix", nvidia_smi=smi[0], **px)
+
     # 6. device times of phase 3's calls, after the timed engine runs
     for t in all_timed.values():
         add_device_times(t, flush)
@@ -1513,6 +1879,12 @@ def main() -> int:
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/csrc/{src}", "replaces": replaces,
             "launches": launched[kname], "path": path, "max_abs_err": err,
+            **({"launches_by_path": {
+                "engine": launched[kname],
+                "frontend_per_replica": [c[kname] for c in
+                                         fe["launches_per_replica"]],
+                "prefix_launcher": px["kernel_launches"][kname]}}
+               if path == serving else {}),
             "ms": times["ms"], "plain_ms": times["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": times["library_ms"],

@@ -133,13 +133,20 @@ class _StepGraph:
     it was made over, and a replay over a tensor at another address
     raises: the graph would read and write the old one.
 
-    Capture uses the default global capture mode.  The engine thread
-    captures under the engine's pool lock (``serving._real_decode``), and
-    the swap workers touch the device only under that lock, so no other
-    thread issues CUDA work during a capture; one that did would fail
-    loudly rather than join the graph."""
+    On CUDA the capture runs on ``stream``, the runner's own side stream,
+    in thread-local capture mode.  The engine thread captures under the
+    engine's pool lock (``serving._real_decode``), so its own swap workers
+    issue no CUDA work then; other threads of the process may (the
+    front-end steps each replica on a thread of its own).  Thread-local
+    mode leaves their launches, synchronisations and allocations legal
+    during the capture, and a capture stream of its own keeps them out of
+    the graph: a side stream is non-blocking, so work on the default
+    stream does not wait on it.  ``torch.cuda.graph`` is not used, since
+    it synchronises the whole device and empties the allocator's cache
+    before a capture."""
 
-    def __init__(self, step: Callable, tensors: Tuple[torch.Tensor, ...]):
+    def __init__(self, step: Callable, tensors: Tuple[torch.Tensor, ...],
+                 stream: Optional[torch.cuda.Stream]):
         self._step = step
         self._ptrs = tuple(t.data_ptr() for t in tensors)
         self.graph = None
@@ -147,8 +154,12 @@ class _StepGraph:
         if tensors[0].is_cuda:
             self.graph = torch.cuda.CUDAGraph()
             with launches.capture() as self.launches, \
-                    torch.cuda.graph(self.graph):
-                self.nxt = step(*tensors)
+                    torch.cuda.stream(stream):
+                self.graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    self.nxt = step(*tensors)
+                finally:
+                    self.graph.capture_end()
         else:
             self.nxt = torch.empty_like(tensors[STEP_TENSORS.index("tokens")])
 
@@ -221,6 +232,9 @@ class DecodeRunner:
         self._host_nxt: Optional[torch.Tensor] = None
         self._nxt_ready = (torch.cuda.Event() if self.device.type == "cuda"
                            else None)
+        # the side stream this runner captures its step graphs on
+        self._capture_stream = (torch.cuda.Stream(self.device)
+                                if self.device.type == "cuda" else None)
         # in-flight chunked prefills, keyed by rid
         self._prefills: Dict[int, _PrefillState] = {}
         self.stats = RunnerStats()
@@ -474,7 +488,8 @@ class DecodeRunner:
         if graph is None:
             step = self._steps[sampled]
             nxt = step(*tensors)
-            self._graphs[sampled] = _StepGraph(step, tensors)
+            self._graphs[sampled] = _StepGraph(step, tensors,
+                                               self._capture_stream)
             self.stats.eager_steps += 1
             if sampled:
                 self.stats.sampled_graphs += 1

@@ -188,10 +188,6 @@ class ServingEngine:
             raise NotImplementedError(
                 f"mesh_shape {config.mesh_shape}: the port serves on one "
                 "device; tensor parallelism is not ported yet")
-        if config.prefix_cache:
-            raise NotImplementedError(
-                "prefix_cache: the prefix cache's real-mode path is not "
-                "ported yet")
         if config.mode == "real":
             assert model_bundle is not None, "real mode needs a model bundle"
             cfg = model_bundle["cfg"]
@@ -228,10 +224,22 @@ class ServingEngine:
         # live-priority fallback for contamination victims never seen by
         # update_priority (the trace lazily assigns, so this never raises)
         self.reuse.priority_fn = self.sched.priority
-        # cross-request prefix cache (DESIGN.md §10): not ported yet —
-        # ``prefix_cache=True`` is refused above, so every prefix path
-        # below sees None
+        # cross-request prefix cache (DESIGN.md §10): radix tree of shared
+        # full-block prompt prefixes pinned on the GPU pool.  Real mode
+        # only (sim prompts have no token ids to key on) and requires a
+        # reuse-enabled policy: the disabled-reuse swap paths rewrite a
+        # request's whole context in place, which would scribble over
+        # pinned shared blocks.
         self.prefix: Optional[PrefixCache] = None
+        if config.prefix_cache:
+            if config.mode != "real":
+                raise ValueError("prefix_cache needs mode='real' "
+                                 "(sim prompts carry no token ids)")
+            if not pol.use_reuse or pol.preemption_mode != "swap":
+                raise ValueError("prefix_cache requires a reuse-enabled "
+                                 "policy (preemption_mode='swap' with "
+                                 "use_reuse)")
+            self.prefix = PrefixCache(self.gpu_mgr, config.block_size)
         # retained (FINISHED) sessions awaiting continue_session/release
         self.parked: Dict[int, Request] = {}
         self._next_handle = 0

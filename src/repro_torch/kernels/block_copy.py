@@ -110,7 +110,7 @@ def block_gather_runs(pool, slab0, src_starts, dst_starts, run_lens,
                                run_blocks)
     if _copy_runs_cuda(pool, slab0, src_starts, dst_starts, run_lens,
                        run_blocks, "block_gather_runs"):
-        launches.count(block_gather_runs)
+        launches.count(block_gather_runs, on=pool)
     return slab0
 
 
@@ -125,7 +125,7 @@ def block_scatter_runs(slab, pool, src_starts, dst_starts, run_lens,
                                run_blocks)
     if _copy_runs_cuda(slab, pool, src_starts, dst_starts, run_lens,
                        run_blocks, "block_scatter_runs"):
-        launches.count(block_scatter_runs)
+        launches.count(block_scatter_runs, on=pool)
     return pool
 
 

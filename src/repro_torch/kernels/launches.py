@@ -7,27 +7,56 @@ tally of the enclosing ``capture()`` block, which the graph keeps, and
 every replay of the graph adds that tally to the wrappers' counts
 (``replayed``).  So a count is the number of times the kernel ran,
 whether it was launched alone or as a node of a replayed graph.
+
+Counts are process-wide sums, safe to make from several threads at once
+(the front-end's replicas step on a thread each, and swap workers launch
+copies).  A wrapper that names the pool it works on (``count(wrapper,
+on=pool)``) is also counted per pool: ``on(wrapper, pool)`` reads the
+launches made on one engine's pool, so each replica's share is known.
+``reset`` sets both to 0.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
 import contextvars
-from typing import Counter, Iterator
+import threading
+from typing import Counter, Iterator, Optional
 
 import torch
 
 # the tally of the capture in progress in this context, if any
 _tally: contextvars.ContextVar = contextvars.ContextVar("launch_tally",
                                                         default=None)
+_lock = threading.Lock()
+# (wrapper, storage address of the pool it worked on) -> launches
+_on: Counter = collections.Counter()
 
 
-def count(wrapper) -> None:
+class Tally(collections.Counter):
+    """{wrapper: launches per replay} of one captured graph, and in
+    ``on`` the same split by pool: {(wrapper, pool storage): launches}."""
+
+    def __init__(self):
+        super().__init__()
+        self.on: Counter = collections.Counter()
+
+
+def _storage(t: torch.Tensor) -> int:
+    return t.untyped_storage().data_ptr()
+
+
+def count(wrapper, on: Optional[torch.Tensor] = None) -> None:
     """One launch of ``wrapper``'s kernel on the current CUDA stream: into
-    ``wrapper.launches``, or into the capture's tally while the stream is
+    ``wrapper.launches`` (and the count of the pool ``on``, a view of it
+    or the pool itself), or into the capture's tally while the stream is
     capturing a graph."""
+    key = None if on is None else (wrapper, _storage(on))
     if not torch.cuda.is_current_stream_capturing():
-        wrapper.launches += 1
+        with _lock:
+            wrapper.launches += 1
+            if key is not None:
+                _on[key] += 1
         return
     tally = _tally.get()
     if tally is None:
@@ -35,13 +64,15 @@ def count(wrapper) -> None:
                            "outside launches.capture(), so the graph's "
                            "replays would go uncounted")
     tally[wrapper] += 1
+    if key is not None:
+        tally.on[key] += 1
 
 
 @contextlib.contextmanager
-def capture() -> Iterator[Counter]:
+def capture() -> Iterator[Tally]:
     """Collect the launches recorded while a graph is captured inside the
-    block: yields a Counter {wrapper: launches per replay}."""
-    tally: Counter = collections.Counter()
+    block (in this thread): yields a ``Tally``."""
+    tally = Tally()
     token = _tally.set(tally)
     try:
         yield tally
@@ -51,5 +82,23 @@ def capture() -> Iterator[Counter]:
 
 def replayed(tally: Counter) -> None:
     """Count one replay of a graph whose capture collected ``tally``."""
-    for wrapper, n in tally.items():
-        wrapper.launches += n
+    with _lock:
+        for wrapper, n in tally.items():
+            wrapper.launches += n
+        _on.update(getattr(tally, "on", {}))
+
+
+def on(wrapper, pool: torch.Tensor) -> int:
+    """Launches of ``wrapper``'s kernel counted on ``pool`` (by its
+    storage, so any view of the pool names it) since the last ``reset``."""
+    with _lock:
+        return _on[(wrapper, _storage(pool))]
+
+
+def reset(*wrappers) -> None:
+    """Set the counts of ``wrappers``, in total and per pool, to 0."""
+    with _lock:
+        for wrapper in wrappers:
+            wrapper.launches = 0
+            for key in [k for k in _on if k[0] is wrapper]:
+                del _on[key]

@@ -134,8 +134,9 @@ def paged_attention(q, k_pool, v_pool, block_tables, context_lens,
 
     CPU tensors take ``paged_attention_plain``; CUDA tensors launch the
     kernel on the current stream (and count the launch in
-    ``paged_attention.launches``, or, inside a CUDA graph capture, in the
-    capture's tally, which each replay adds: ``kernels.launches``)."""
+    ``paged_attention.launches`` and on ``k_pool``'s pool, or, inside a
+    CUDA graph capture, in the capture's tally, which each replay adds:
+    ``kernels.launches``)."""
     if not q.is_cuda:
         return paged_attention_plain(q, k_pool, v_pool, block_tables,
                                      context_lens, scale,
@@ -161,7 +162,7 @@ def paged_attention(q, k_pool, v_pool, block_tables, context_lens,
         n_pages, npp, n_splits, chunk, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check_launch(code, "paged_attention")
-    launches.count(paged_attention)
+    launches.count(paged_attention, on=k_pool)
     return out
 
 

@@ -16,7 +16,9 @@ Sim mode touches no device.  TTFT and TBT come from the engine's
 simulated clock, modelled by the A10 cost model (``io/cost_model.py``),
 in real mode too; ``callstack_wall_s`` is real wall time.  Real mode's
 ``--out`` results add, per run, the hand-written kernels' launches
-(``kernel_launches``; 0 on the CPU, where the plain versions run).
+(``kernel_launches``; 0 on the CPU, where the plain versions run), and
+the online run adds each conversation's token history
+(``token_histories``).
 
   # sim-mode replay, both policies (the paper's comparison)
   PYTHONPATH=src python -m repro_torch.launch.serve --policy vllm \
@@ -33,9 +35,26 @@ in real mode too; ``callstack_wall_s`` is real wall time.  Real mode's
   # chaos, admission control, drain: as the reference
   PYTHONPATH=src python -m repro_torch.launch.serve --online --chaos --smoke
 
-Not ported yet, and refused with a non-zero exit: ``--serve`` /
-``--router`` (the network front-end, ``repro/frontend/``) and
-``--prefix-cache`` (the prefix cache's real-mode path).
+  # the prefix cache's smoke (implies --real --online): a 49-token system
+  # prompt shared by every conversation, the C1/C2 sanitizer every step;
+  # --system-prompt alone opens the conversations the same way with the
+  # cache off (the port's flag, for comparing the two runs' tokens)
+  PYTHONPATH=src python -m repro_torch.launch.serve --prefix-cache \
+      --online --smoke --device cpu
+
+  # network front-end: 2 replicas behind the fair-admission router,
+  # JSON lines on localhost:8471, one event log per replica at
+  # /tmp/fe_r<i>.jsonl (``repro_torch.frontend``); real replicas on the
+  # card share one parameter bundle and take token-id prompts
+  PYTHONPATH=src python -m repro_torch.launch.serve --serve --router 2 \
+      --real --events /tmp/fe
+  #   {"op": "submit", "client": "me", "prompt": [1, 2, 3], "max_tokens": 16}
+  #   {"op": "continue", "handle": 0, "prompt": [4, 5]}   (KV-reuse turn)
+  #   {"op": "drain"}                                      (graceful stop)
+
+Every mode of the reference's launcher is served.  The engine's
+tensor-parallel mesh (``EngineConfig.mesh_shape``), which no launcher
+flag sets, is not ported: the port serves on one device.
 """
 from __future__ import annotations
 
@@ -88,8 +107,8 @@ def _launch_counts() -> dict:
 
 
 def _reset_launch_counts() -> None:
-    for fn in _serving_kernels().values():
-        fn.launches = 0
+    from repro_torch.kernels import launches
+    launches.reset(*_serving_kernels().values())
 
 
 def validate_event_log(path: str) -> int:
@@ -195,6 +214,12 @@ def run_online(args) -> dict:
     # robustness wiring (DESIGN.md §7): seeded chaos schedule, invariant
     # sanitizer cadence, copy watchdog, bounded admission
     overrides = {}
+    if args.prefix_cache:
+        overrides["prefix_cache"] = True
+        if args.smoke:
+            # the prefix-cache smoke doubles as a refcount-conservation
+            # gate: C1/C2 checked after every step
+            overrides["check_invariants_every"] = 1
     if args.chaos:
         overrides["fault_plan"] = FaultPlan.chaos(seed=args.seed,
                                                   intensity=args.chaos)
@@ -219,9 +244,21 @@ def run_online(args) -> dict:
                            model_bundle=model, event_sink=sink,
                            stream_tokens=args.stream and args.real)
 
+    # shared "system prompt": with the prefix cache on, every
+    # conversation's FIRST turn opens with the same token run so the
+    # radix tree gets real cross-request hits (3 full blocks cacheable
+    # out of 49 tokens at block_size 16)
+    sys_prefix = []
+    if args.prefix_cache or args.system_prompt:
+        vocab = model["cfg"].vocab_size if model else 1 << 20
+        sys_prefix = [(7 * i + 3) % vocab for i in range(49)]
+
     def prompt_for(conv, tix):
-        return prompt_for_turn(
+        toks = prompt_for_turn(
             conv, tix, model["cfg"].vocab_size if model else None)
+        if tix == 0 and sys_prefix:
+            toks = sys_prefix + list(toks)
+        return toks
 
     rng = random.Random(args.seed + 1)
     pending = sorted(convs, key=lambda c: c.arrival_s)
@@ -297,6 +334,10 @@ def run_online(args) -> dict:
     result = {**m.summary(), "slo": m.slo_summary(), **engine.swap.stats()}
     if args.real:
         result["kernel_launches"] = _launch_counts()
+        # each conversation's tokens (prompts and generated) at its last
+        # finished turn, for checks against a dense forward
+        result["token_histories"] = {
+            str(h): toks for h, toks in engine._token_hist_by_conv.items()}
     if args.chaos:
         result["faults_fired"] = dict(engine.faults.fired)
     print(f"online[{policy}] " + json.dumps(m.summary()))
@@ -313,6 +354,9 @@ def run_online(args) -> dict:
         print("admission " + json.dumps({
             "rejected": m.rejected, "shed": m.shed,
             "client_refused": n_refused}))
+    if args.prefix_cache:
+        result["prefix"] = engine.prefix.stats()
+        print("prefix " + json.dumps(engine.prefix.stats()))
     if ev_file:
         ev_file.close()
         n_ev = validate_event_log(args.events)
@@ -331,6 +375,13 @@ def run_online(args) -> dict:
             assert sum(engine.faults.fired.values()) > 0, \
                 "chaos smoke fired no faults"
             assert m.invariant_checks > 0, "invariant sanitizer never ran"
+        if args.prefix_cache:
+            # cross-request sharing must actually happen: every conv
+            # after the first opens with the cached system prompt
+            assert m.prefix_hits > 0, "prefix-cache smoke saw no hits"
+            assert m.prefix_tokens_saved > 0, "prefix hits saved nothing"
+            assert m.invariant_checks > 0, \
+                "prefix smoke ran without the sanitizer"
         print(f"online smoke OK: {m.total_tokens} tokens, "
               f"{len(m.request_stats)} turns, {m.aborted} aborted, "
               f"{m.faulted} faulted")
@@ -392,6 +443,70 @@ def run_replay(args) -> dict:
     return results
 
 
+def run_serve(args) -> dict:
+    """Network front-end mode: boot ``--router N`` engine replicas
+    behind the fair-admission router and serve the JSON-lines protocol
+    until interrupted (``repro_torch.frontend.server``).  ``--events
+    PREFIX`` writes one JSONL event log per replica at
+    ``PREFIX_r<i>.jsonl``.  Real replicas share one model bundle (on
+    ``--device``) and own a pool each."""
+    import asyncio
+
+    from repro_torch.core import EngineConfig, ServingEngine
+    from repro_torch.frontend.server import FrontendServer
+
+    n = max(1, args.router)
+    policy = (args.policy or ["fastswitch"])[0]
+    model = (_build_real_bundle(args.arch, args.seed, args.device)
+             if args.real else None)
+    cfg = EngineConfig(
+        mode="real" if args.real else "sim",
+        num_gpu_blocks=args.gpu_blocks or (64 if args.real else 256),
+        num_cpu_blocks=args.cpu_blocks or (256 if args.real else 1024),
+        max_running=args.max_running or (4 if args.real else 8),
+        max_batch=4 if args.real else 32,
+        max_waiting=args.max_waiting,
+        overload_policy=args.overload_policy,
+    ).with_policy(policy)
+
+    files = []
+    engines = []
+    for i in range(n):
+        sink = None
+        if args.events:
+            # line-buffered: a long-running server is usually stopped by
+            # SIGTERM, which never unwinds to the close() below — each
+            # event must be durable the moment it is written
+            f = open(f"{args.events}_r{i}.jsonl", "w", buffering=1)
+            files.append(f)
+            sink = (lambda fh: lambda ev: fh.write(
+                json.dumps(ev.as_dict()) + "\n"))(f)
+        engines.append(ServingEngine(cfg, model_bundle=model,
+                                     event_sink=sink,
+                                     stream_tokens=bool(args.stream
+                                                        and args.real)))
+
+    async def _run():
+        srv = FrontendServer(engines, host=args.host, port=args.port)
+        host, port = await srv.start()
+        print(f"frontend: {n} {cfg.mode} replica(s) on {host}:{port}",
+              flush=True)
+        try:
+            while True:
+                await asyncio.sleep(3600.0)
+        finally:
+            await srv.close()
+
+    try:
+        asyncio.run(_run())
+    except KeyboardInterrupt:
+        print("frontend: interrupted, shutting down", flush=True)
+    finally:
+        for f in files:
+            f.close()
+    return {"replicas": n, "mode": cfg.mode}
+
+
 def main() -> None:
     from repro_torch.core.policies import POLICIES
     ap = argparse.ArgumentParser()
@@ -442,10 +557,16 @@ def main() -> None:
                     help="enter drain mode at t=T_S: refuse new work, "
                          "finish in-flight requests, exit")
     ap.add_argument("--prefix-cache", action="store_true",
-                    help="cross-request prefix cache: not ported yet, "
-                         "refused")
+                    help="cross-request prefix cache (DESIGN.md §10); "
+                         "implies --real --online")
+    ap.add_argument("--system-prompt", action="store_true",
+                    help="open every conversation's first turn with the "
+                         "49-token system prompt that --prefix-cache "
+                         "shares, with or without the cache (its "
+                         "cache-off twin for a token comparison)")
     ap.add_argument("--serve", action="store_true",
-                    help="network front-end: not ported yet, refused")
+                    help="network front-end: fair router over N replicas "
+                         "(JSON lines over TCP, DESIGN.md §11)")
     ap.add_argument("--router", type=int, default=1, metavar="N",
                     help="number of engine replicas behind --serve")
     ap.add_argument("--host", default="127.0.0.1")
@@ -454,9 +575,8 @@ def main() -> None:
     args = ap.parse_args()
 
     if args.prefix_cache:
-        raise SystemExit("--prefix-cache: the prefix cache's real-mode "
-                         "path (repro_torch.core.prefix_cache with the "
-                         "runner's carry seeding) is not ported yet")
+        args.real = True               # the cache lives on the real pool
+        args.online = True
     if args.smoke and not args.online:
         args.online = True
     if args.smoke:
@@ -465,10 +585,8 @@ def main() -> None:
             args.slo_ttft_ms, args.slo_tbt_ms = 2000.0, 200.0
 
     if args.serve:
-        raise SystemExit("--serve/--router: the network front-end "
-                         "(repro_torch.frontend, the counterpart of "
-                         "repro/frontend/) is not ported yet")
-    if args.online:
+        results = run_serve(args)
+    elif args.online:
         results = run_online(args)
     else:
         results = run_replay(args)

@@ -201,6 +201,53 @@ def test_captured_launches_count_at_each_replay(monkeypatch):
     assert kernel.launches == 7
 
 
+def test_launch_counts_are_exact_across_threads_and_per_pool(monkeypatch):
+    """Sixteen threads (more than the cores) count launches of one kernel
+    at once with a short switch interval, half eagerly on one pool (by a
+    view of it), half by replays on another: the total is exact, and so is
+    each pool's share; ``reset`` clears both."""
+    import sys
+    import threading
+
+    def kernel():
+        pass
+    kernel.launches = 0
+    pools = [torch.zeros(4, 8), torch.zeros(4, 8)]
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    tally = launches.Tally()
+    tally[kernel] += 2
+    tally.on[(kernel, pools[1].untyped_storage().data_ptr())] += 2
+    n_threads, n = 16, 20_000
+    go = threading.Barrier(n_threads)
+
+    def work(i):
+        go.wait()
+        for _ in range(n):
+            if i % 2:
+                launches.replayed(tally)
+            else:
+                launches.count(kernel, on=pools[0][1])
+    threads = [threading.Thread(target=work, args=(i,))
+               for i in range(n_threads)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    half = n_threads // 2 * n
+    assert kernel.launches == 3 * half
+    assert launches.on(kernel, pools[0]) == half
+    assert launches.on(kernel, pools[1]) == 2 * half
+    launches.reset(kernel)
+    assert kernel.launches == 0 and launches.on(kernel, pools[0]) == 0
+
+
 def test_cpu_replay_runs_the_step_body_over_the_same_tensors(models):
     """The interpret-mode variant: no graph, a static ``nxt`` it writes in
     place at each replay, and the step tensors in ``STEP_TENSORS`` order."""

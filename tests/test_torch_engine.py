@@ -216,8 +216,15 @@ def test_port_refuses_what_it_does_not_serve(bundles):
     cfg = _storm_cfg(EngineConfig)
     with pytest.raises(NotImplementedError):
         ServingEngine(replace(cfg, mesh_shape=(1, 2)), model_bundle=tb)
-    with pytest.raises(NotImplementedError):
-        ServingEngine(replace(cfg, prefix_cache=True), model_bundle=tb)
+    # the prefix cache is served now, and refused where the reference
+    # refuses it: in sim mode and under a policy without reuse
+    assert ServingEngine(replace(cfg, prefix_cache=True),
+                         model_bundle=tb).prefix is not None
+    with pytest.raises(ValueError, match="mode='real'"):
+        ServingEngine(replace(cfg, mode="sim", prefix_cache=True))
+    with pytest.raises(ValueError, match="reuse-enabled"):
+        ServingEngine(replace(_storm_cfg(EngineConfig, "vllm"),
+                              prefix_cache=True), model_bundle=tb)
     # sampling is served now: a request with temperature > 0 finishes
     eng = ServingEngine(replace(cfg, temperature=0.7), model_bundle=tb)
     eng.add_request(list(range(1, 20)),

@@ -4,23 +4,38 @@ reference's ``repro.launch.serve`` (CPU, in process).
   * sim mode (replay with both policies, the online smoke, the chaos
     smoke, drain): the ``--out`` results, the event logs and the printed
     lines are equal, all but ``callstack_wall_s``, which is real wall time;
-  * real mode on the CPU (``--real --device cpu --online --smoke``): the
-    reduced model's run passes ``validate_event_log`` and gives the
-    reference's modelled metrics and event log (the simulated clock does
-    not depend on the weights);
-  * what the port does not serve yet exits non-zero with a message naming
-    it: ``--serve`` / ``--router``, ``--prefix-cache``, and ``--device
-    cuda`` without a GPU.
+  * real mode on the CPU (``--real --device cpu --online --smoke``, and
+    the same with ``--prefix-cache``): the reduced model's run passes
+    ``validate_event_log`` and gives the reference's modelled metrics and
+    event log (the simulated clock does not depend on the weights);
+  * ``--serve --router 2 --real --device cpu`` answers a loopback client
+    and stops cleanly on an interrupt;
+  * ``--device cuda`` without a GPU exits non-zero with a message naming
+    it.
+
+Real-mode runs compared exactly hold their swap tasks to the simulated
+clock (``swaps_follow_the_clock``): a swap-out's copy runs on a worker
+thread, and a task the clock has passed but whose copy is still running
+would otherwise stay in flight for one more poll, so ``n_conflicts`` and
+``n_syncs`` (and what follows from them) would depend on how fast the
+threads ran.  Both packages are held so, the same way.
 """
+import concurrent.futures
 import json
+import os
 import re
 import sys
 
 import pytest
 import torch
 
+from repro.core import swap_manager as jax_swap_manager
 from repro.launch import serve as jax_serve
+from repro_torch.core import swap_manager as torch_swap_manager
 from repro_torch.launch import serve
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+import chip_smoke  # noqa: E402
 
 WALL = re.compile(r'"callstack_wall_s": [0-9.e+-]+')
 
@@ -31,6 +46,19 @@ SIM_RUNS = {
     "chaos_smoke": ["--online", "--chaos", "--smoke"],
     "drain": ["--online", "--drain", "5", "--conversations", "20"],
 }
+
+
+@pytest.fixture
+def swaps_follow_the_clock(monkeypatch):
+    """Make ``SwapTask.is_completed`` of both packages wait for the task's
+    copy before it compares clocks: completions then follow the simulated
+    clock alone, while the copies still run on the worker threads."""
+    for module in (jax_swap_manager, torch_swap_manager):
+        def is_completed(task, now_us, _real=module.SwapTask.is_completed):
+            if task.future is not None:
+                concurrent.futures.wait([task.future])
+            return _real(task, now_us)
+        monkeypatch.setattr(module.SwapTask, "is_completed", is_completed)
 
 
 def _launch(module, argv, tmp_path, tag, capsys, monkeypatch, events=True):
@@ -69,8 +97,10 @@ def test_sim_launcher_matches_the_reference(run, tmp_path, capsys,
         assert serve.validate_event_log(str(tmp_path / "port.jsonl")) > 0
 
 
-def test_real_cpu_online_smoke(tmp_path, capsys, monkeypatch):
-    argv = ["--online", "--smoke", "--real"]
+def _real_cpu_smoke(argv, tmp_path, capsys, monkeypatch):
+    """The real online smoke with ``argv`` through both launchers (the
+    port's on the CPU): the port's results (less its own keys) and event
+    log equal the reference's.  Returns the port's results."""
     want, want_ev, _ = _launch(jax_serve, argv, tmp_path, "ref", capsys,
                                monkeypatch)
     got, got_ev, printed = _launch(serve, [*argv, "--device", "cpu"],
@@ -82,22 +112,72 @@ def test_real_cpu_online_smoke(tmp_path, capsys, monkeypatch):
     assert got.pop("kernel_launches") == {"paged_attention": 0,
                                           "block_gather_runs": 0,
                                           "block_scatter_runs": 0}
+    histories = got.pop("token_histories")
+    assert histories and all(histories.values())
     assert got == want
     assert got_ev == want_ev
+    return got
 
 
-@pytest.mark.parametrize("argv,names", [
-    (["--serve", "--router", "2"], "repro_torch.frontend"),
-    (["--prefix-cache", "--online", "--smoke"], "prefix cache"),
-    (["--real", "--device", "cuda", "--conversations", "2"],
-     "torch.cuda.is_available"),
-], ids=["serve", "prefix_cache", "cuda_without_gpu"])
-def test_launcher_refuses_what_the_port_does_not_serve(argv, names,
-                                                      monkeypatch):
-    if "cuda" in argv and torch.cuda.is_available():
+def test_real_cpu_online_smoke(tmp_path, capsys, monkeypatch,
+                               swaps_follow_the_clock):
+    _real_cpu_smoke(["--online", "--smoke", "--real"], tmp_path, capsys,
+                    monkeypatch)
+
+
+def _serves_the_frontend(tmp_path, capsys, monkeypatch):
+    """``--serve --router 2`` on two real replicas of the reduced model:
+    one session streams its tokens and finishes by length; an interrupt
+    stops the server with exit code 0 (a client still connected) and
+    leaves a well-formed event log on the replica that served it."""
+    prefix = str(tmp_path / "fe")
+    run = chip_smoke.serve_one_session(
+        ["--router", "2", "--real", "--device", "cpu", "--stream",
+         "--events", prefix], list(range(3, 40)))
+    assert run["returncode"] == 0, run["stderr"]
+    assert run["stdout"][0].startswith("frontend: 2 real replica(s) on ")
+    assert "frontend: interrupted, shutting down" in run["stdout"]
+    kinds = [e["event"] for e in run["events"]]
+    assert kinds[0] == "accepted" and kinds[-1] == "finish"
+    tokens = [t for e in run["events"] if e["event"] == "token"
+              for t in e["token_ids"]]
+    assert len(tokens) == 4 and run["events"][-1]["reason"] == "length"
+    logs = [serve.validate_event_log(f"{prefix}_r{i}.jsonl")
+            for i in range(2)
+            if os.path.getsize(f"{prefix}_r{i}.jsonl")]
+    assert len(logs) == 1 and logs[0] > 0
+
+
+def _serves_the_prefix_cache(tmp_path, capsys, monkeypatch):
+    """``--prefix-cache --online --smoke`` (real mode, the reduced model on
+    the CPU) gives the reference's results, ``prefix`` stats line and
+    event log: every conversation after the first hits the 49-token
+    system prompt, with the C1/C2 sanitizer on every step."""
+    got = _real_cpu_smoke(["--prefix-cache", "--online", "--smoke"],
+                          tmp_path, capsys, monkeypatch)
+    assert got["prefix"]["hits"] > 0 and got["prefix_tokens_saved"] > 0
+    assert got["invariant_checks"] > 0
+
+
+def _refuses_cuda_without_gpu(tmp_path, capsys, monkeypatch):
+    if torch.cuda.is_available():
         pytest.skip("a GPU is present: --device cuda serves")
-    monkeypatch.setattr(sys, "argv", ["serve", *argv])
+    monkeypatch.setattr(sys, "argv", ["serve", "--real", "--device", "cuda",
+                                      "--conversations", "2"])
     with pytest.raises(SystemExit) as exit_:
         serve.main()
     assert exit_.value.code not in (0, None)
-    assert names in str(exit_.value.code)
+    assert "torch.cuda.is_available" in str(exit_.value.code)
+
+
+@pytest.mark.parametrize("case", [_serves_the_frontend,
+                                  _serves_the_prefix_cache,
+                                  _refuses_cuda_without_gpu],
+                         ids=["serve", "prefix_cache", "cuda_without_gpu"])
+def test_launcher_refuses_what_the_port_does_not_serve(
+        case, tmp_path, capsys, monkeypatch, swaps_follow_the_clock):
+    """The modes the port's launcher once refused.  It now refuses only
+    ``--device cuda`` without a GPU; the ``serve`` and ``prefix_cache``
+    cases, refusals before, now run those modes and hold them to what
+    they serve."""
+    case(tmp_path, capsys, monkeypatch)
