@@ -16,11 +16,14 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                version and one PyTorch library call computing the same
                function (where one exists).  Shapes: qwen2-1.5b's decode
                attention (B 8 and 32 over tables of 64 and 128 pages, and
-               the engine's bucket, B 8 x 64 pages with contexts 256-600;
-               timed at B 32 x 128 pages and at the engine's bucket) and
-               one 64-block swap chunk (gather, scatter, and
+               the engine's bucket, B 8 x 64 pages with contexts 256-600,
+               also at olmoe-1b-7b's 16 / 16 heads, a GQA group of 1;
+               timed at B 32 x 128 pages and at the engine's bucket, both
+               groups) and one 64-block swap chunk (gather, scatter, and
                the same chunk as per-block pairs and as grouped 2-D runs:
-               byte-equal); its prefill attention, B 1 x T 2048 and
+               byte-equal; gather and scatter also over olmoe-1b-7b's
+               pool, 32 planes of 64 KiB rows); its prefill attention,
+               B 1 x T 2048 and
                B 8 x T 512 (flash, every element within a bf16 tolerance);
                zamba2-7b's SSD scan, 112 heads x T 4096 (y and S within
                stated bounds).
@@ -83,6 +86,24 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                step, a well-formed event log, its kernels launched) and the
                same smoke with the cache off: each conversation's greedy
                tokens equal, or the first difference a near-tie.
+  5g. moe    — olmoe-1b-7b at full width (16 layers, d_model 2048, 16 / 16
+               heads of 128, 64 experts top-8, random weights from a seed,
+               bf16 serving copy only) through the engine phase's workload:
+               a warm-up run (each bucket's first replay byte-equal to its
+               eager step), then a timed run (launch counts set to 0 just
+               before) whose tokens must equal the warm-up's, both with
+               swap tasks held to the simulated clock, then one unheld
+               run; every turn finished, no copy retried or failed, every
+               conversation swapped out and back in; at the engine's
+               bucket one decode step with the CUDA paged attention
+               against the same step with its plain version, routed alike
+               (``moe_oracle``); one replay's ms beside the step's bound
+               (the routed experts' weights and walked KV over HBM) and
+               its dense-dispatch bound; peak memory.  Then the
+               launcher's ``--real --arch olmoe-1b-7b --conversations 2``
+               as a subprocess.  The phase runs in a process of its own,
+               ``scripts/moe_probe.py`` (``--profile`` there adds the
+               replay's kernels by device time).
   6. device_times — the device time of each phase-3 kernel and library
                call alone: their CUDA kernels under ``torch.profiler``, the
                wrapper's host time left out.  After the engine phases,
@@ -403,8 +424,10 @@ def time_attention(case, flush):
 
 def copy_case(device, seed: int, nb=512, runs=((3, 20), (40, 12), (100, 32)),
               L=28, bs=16, Hkv=2, D=128):
-    """A 64-block swap chunk in three runs over a qwen2-1.5b pool layout:
-    C = L * 2 = 56 planes of E = bs * Hkv * D = 4096 bf16 (8 KB) rows."""
+    """A 64-block swap chunk in three runs over a pool of C = L * 2
+    planes of E = bs * Hkv * D bf16 rows: by default qwen2-1.5b's, 56
+    planes of 4096 (8 KB) rows; olmoe-1b-7b's (L 16, Hkv 16) is 32 planes
+    of 32768 (64 KiB) rows."""
     import torch
     g = torch.Generator(device=device).manual_seed(seed)
     pool = torch.randint(-2 ** 15, 2 ** 15, (L, 2, nb, bs, Hkv, D),
@@ -1603,6 +1626,382 @@ def prefix_phase(bundle, out_dir: Path, device: str = "cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 5g: MoE serving (olmoe-1b-7b)
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "olmoe-1b-7b"
+# the moe phase's oracle step: the CUDA paged attention against its plain
+# version on the same state, the plain step's tokens sent to the experts
+# the kernel step chose.  Both attentions round once to bf16 (one ulp
+# apart at most, ATTN_RTOL), and 16 layers of bf16 activations carry that
+# to the fp32 logits (spread ~0.9 at random weights): a tiny difference
+# moves an element of the residual stream by a whole bf16 ulp.  A router
+# that chose freely could also flip a token's expert at a near-tie, which
+# moves its hidden state by a whole expert's output, and that no logit
+# bound covers; the free step's flips are counted beside the check.
+# Held per logit to MOE_LOGIT_ATOL (twice the near-tie rule); the argmax
+# equal, or a near-tie (NEAR_TIE) of the plain step.
+MOE_LOGIT_ATOL = 0.1
+
+
+@contextlib.contextmanager
+def swaps_follow_the_clock(*modules):
+    """Within the block, a swap task whose modelled end the simulated
+    clock has passed waits for its copy before it reports complete
+    (``SwapTask.is_completed`` of each swap-manager module given, by
+    default the port's), where it would otherwise stay in flight for
+    another poll while a worker thread still copies.  Which requests
+    decode together then follows the simulated clock alone, not the
+    threads' speed: a MoE row's tokens depend on its bucket's other rows
+    through capacity, so only then do two identical runs give equal
+    tokens.  Yields {"wait_s": seconds spent waiting for copies}."""
+    import concurrent.futures
+    if not modules:
+        from repro_torch.core import swap_manager
+        modules = (swap_manager,)
+    held = {"wait_s": 0.0}
+    reals = [m.SwapTask.is_completed for m in modules]
+
+    def holding(real):
+        def is_completed(task, now_us):
+            if task.future is not None and now_us >= task.done_at \
+                    and not task.future.done():
+                t0 = time.perf_counter()
+                concurrent.futures.wait([task.future])
+                held["wait_s"] += time.perf_counter() - t0
+            return real(task, now_us)
+        return is_completed
+    for m, real in zip(modules, reals):
+        m.SwapTask.is_completed = holding(real)
+    try:
+        yield held
+    finally:
+        for m, real in zip(modules, reals):
+            m.SwapTask.is_completed = real
+
+
+@contextlib.contextmanager
+def fullest_replays():
+    """Within the block, keeps per (batch, pages) bucket the step tensors
+    of the first replay with the most active rows: {bucket: {"active": n,
+    "clones": clones of the tensors before the replay}}.  Reads each
+    replay's active count on the host (a synchronise)."""
+    from repro_torch.core import decode_runner as dr
+    real = dr._StepGraph.replay
+    snaps = {}
+
+    def replay(graph, tensors):
+        bucket = tuple(tensors[dr.STEP_TENSORS.index("block_tables")].shape)
+        n = int(tensors[dr.STEP_TENSORS.index("active")].sum())
+        if n > snaps.get(bucket, {"active": 0})["active"]:
+            snaps[bucket] = {"active": n,
+                             "clones": [t.clone() for t in tensors]}
+        return real(graph, tensors)
+    dr._StepGraph.replay = replay
+    try:
+        yield snaps
+    finally:
+        dr._StepGraph.replay = real
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+
+
+def moe_step_bytes(params, cfg, ctx, experts=None) -> float:
+    """Bytes one decode step must move: every parameter it reads once
+    (the embedding's rows only), each row's walked K/V (ctx + 1 tokens)
+    and its new K/V row written.  Of the experts' weights, given
+    ``experts`` (per layer, how many distinct experts the step's rows
+    reach), only those experts'; else all of them, as the port's dense
+    dispatch multiplies every expert's buffer."""
+    ffn = params["layers"]["ffn"]
+    nbytes = sum(t.numel() * t.element_size()
+                 for name, sub in params.items() if name != "embed"
+                 for t in _leaves(sub))
+    if experts is not None:
+        per_expert = sum(ffn[k].numel() * ffn[k].element_size()
+                         for k in EXPERT_LEAVES) / (
+            cfg.n_layers * cfg.moe.n_experts)
+        nbytes -= per_expert * (cfg.n_layers * cfg.moe.n_experts
+                                - sum(experts))
+    B = ctx.numel()
+    tok_kv = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.resolved_head_dim * 2
+    nbytes += B * cfg.d_model * 4                     # the embedded rows
+    nbytes += int((ctx.long() + 1).sum()) * tok_kv + B * tok_kv
+    return float(nbytes)
+
+
+def replay_ops(replay, iters: int = 5, top: int = 8) -> dict:
+    """Device time of ``iters`` calls of ``replay`` (a captured graph's
+    replay) under ``torch.profiler``: per call, the device ms of all its
+    kernels and of the ``top`` operations by time, with their counts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            replay()
+        torch.cuda.synchronize()
+    events = _device_events(prof)
+    if not events:
+        raise AssertionError("the profiler recorded no kernel of the replay")
+    by_name = {}
+    for e in events:
+        n_us = by_name.setdefault(e.name[:60], [0, 0.0])
+        n_us[0] += 1
+        n_us[1] += e.time_range.end - e.time_range.start
+    ops_ = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    return {"device_ms": sum(us for _, us in by_name.values()) / 1e3 / iters,
+            "kernels": len(events) / iters,
+            "top": [{"name": n, "count": c / iters, "ms": us / 1e3 / iters}
+                    for n, (c, us) in ops_]}
+
+
+def moe_oracle(eng, snap, tol: float = NEAR_TIE) -> dict:
+    """One decode step at the engine's bucket from the snapshot's state,
+    with the CUDA paged attention and with ``paged_attention_plain`` on
+    the same tensors (each on its own copy of the pool), the plain step's
+    tokens sent to the experts the kernel step chose: per active row, the
+    logits within MOE_LOGIT_ATOL and the argmax equal, or a near-tie of
+    the plain step's logits.  A third, free plain step counts the rows
+    whose experts differ from the kernel step's somewhere (``flip``: the
+    first such layer and its K-th to (K+1)-th probability gap).  Raises
+    with every row's record where a row fails."""
+    import torch
+    from repro_torch.core import decode_runner as dr
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe
+    from repro_torch.models import paged
+    cfg = eng.runner.mb["cfg"]
+    params = eng.runner._params
+    t = dict(zip(dr.STEP_TENSORS, snap["clones"]))
+    real_route, real_attention = moe.route, ops.paged_attention
+
+    def plain_attention(*a, **k):
+        return pa.paged_attention_plain(*a, **k)
+
+    active = t["active"].cpu()
+
+    def step(attention, pinned=None):
+        """(logits, per layer (experts as sets, K/K+1 gaps, experts, how
+        many distinct experts the active rows' kept pairs reach))."""
+        plans = []
+
+        def route(router, xf, m):
+            plan = real_route(router, xf, m)
+            if pinned is not None:
+                plan = moe.plan_for(plan.probs, pinned[len(plans)][2], m)
+            top = torch.sort(plan.probs, dim=-1, descending=True).values
+            eids, slot = plan.eids.cpu(), plan.slot.cpu()
+            kept = eids[active][slot[active] < plan.capacity]
+            plans.append((eids.sort(dim=-1).values,
+                          (top[:, m.top_k - 1] - top[:, m.top_k]).cpu(),
+                          plan.eids, int(torch.unique(kept).numel())))
+            return plan
+        moe.route, ops.paged_attention = route, attention
+        try:
+            with torch.no_grad():
+                x, _ = paged._decode_hidden(
+                    params, t["pool"].clone(), t["block_tables"],
+                    t["context_lens"].clone(), t["tokens"], cfg)
+                head = (params["embed"] if cfg.tie_embeddings
+                        else params["lm_head"])
+                return L.unembed(head, x).cpu(), plans
+        finally:
+            moe.route, ops.paged_attention = real_route, real_attention
+
+    lk, pk = step(real_attention)
+    lp, _ = step(plain_attention, pinned=pk)
+    _, pf = step(plain_attention)
+    records, faults = [], []
+    for r in torch.nonzero(active)[:, 0].tolist():
+        a, b = int(lk[r].argmax()), int(lp[r].argmax())
+        rec = {"row": r, "ctx": int(t["context_lens"][r]),
+               "logit_err": float((lk[r] - lp[r]).abs().max()),
+               "argmax_gap": float(lp[r, b] - lp[r, a])}
+        differ = [i for i, (k, f) in enumerate(zip(pk, pf))
+                  if not torch.equal(k[0][r], f[0][r])]
+        if differ:
+            rec["flip"] = {"layer": differ[0],
+                           "gap": float(pf[differ[0]][1][r])}
+        if not rec["logit_err"] <= MOE_LOGIT_ATOL:
+            faults.append(f"row {r}: logits {rec['logit_err']} from the "
+                          f"plain step's (> {MOE_LOGIT_ATOL})")
+        if a != b and rec["argmax_gap"] >= tol:
+            faults.append(f"row {r}: the kernel step's argmax {a} is "
+                          f"{rec['argmax_gap']} below the plain step's")
+        records.append(rec)
+    if faults:
+        raise AssertionError(f"{faults}; rows: {json.dumps(records)}")
+    return {"rows": records,
+            "routed_experts_per_layer": [p[3] for p in pk],
+            "max_abs_logit_err": max(r["logit_err"] for r in records),
+            "argmax_near_ties": sum(r["argmax_gap"] > 0 for r in records),
+            "free_routing_flips": sum("flip" in r for r in records),
+            "tolerance": {"logit_atol": MOE_LOGIT_ATOL, "near_tie": tol}}
+
+
+def moe_phase(device, out_dir: Path, cfg=None,
+              profile: bool = False) -> dict:
+    """olmoe-1b-7b at full width (``cfg``: another config, for a rehearsal
+    on the CPU) served by ``ServingEngine`` in real mode with the engine
+    phase's workload: 8 two-turn conversations, 160 GPU and 1024 CPU
+    blocks, fastswitch, the storm of seed 13; a warm-up run (each bucket's
+    first replay held against its eager step, and the fullest replay of
+    each bucket kept), then the timed run with the serving kernels' counts
+    set to 0 just before, both with swap tasks held to the simulated
+    clock (``swaps_follow_the_clock``; the timed run's waits for copies
+    are reported), then the same workload unheld, as ``launch.serve``
+    runs it (its wall).  Checks: every turn finished, no copy retried or
+    failed, every conversation swapped out and back in (``check_engine``,
+    all three runs); the two held runs' token histories identical; paged
+    attention once per layer per step and both run copies launched; the
+    oracle step (``moe_oracle``).  Times one replay of the last bucket's
+    graph over its fullest state beside the step's bound (the weights of
+    the experts the active rows' kept pairs reach, per layer) and its
+    dense-dispatch bound (all experts' weights), and with ``profile`` its
+    kernels by operation (``replay_ops``).  Then the launcher, ``--real
+    --arch olmoe-1b-7b --conversations 2 --policy fastswitch``, as a
+    subprocess once the phase's tensors are freed."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import decode_runner as dr
+    from repro_torch.kernels import launches as kl
+    from repro_torch.launch.serve import _serving_kernels
+    from repro_torch.models import transformer as T
+    kind = torch.device(device).type
+    cuda = kind == "cuda"
+    cfg = cfg or get_config(MOE_ARCH)
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bundle = {"cfg": cfg, "params": T.serving_params(
+        T.init_params(cfg, seed=SEED, device=device))}
+    init_s = time.perf_counter() - t0
+    mem = ({"after_init_gb": torch.cuda.memory_allocated() / 1e9,
+            "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+           if cuda else {})
+    convs = conversations(8, (256, 288, 320, 352), (96, 128, 160),
+                          max_tokens=32)
+    sizes = dict(gpu_blocks=160, cpu_blocks=1024, max_running=8)
+    with swaps_follow_the_clock(), replays_held_to_eager() as held, \
+            fullest_replays() as snaps:
+        warm, warm_wall, _, warm_swaps = run_engine(bundle, convs, **sizes)
+    check_engine(warm, convs, warm_swaps)
+    if not held:
+        raise AssertionError("no captured MoE decode step was replayed")
+    kernels = _serving_kernels()
+    kl.reset(*kernels.values())
+    with swaps_follow_the_clock() as hold:
+        eng, wall, host, swaps = run_engine(bundle, convs, **sizes)
+    launched = {n: fn.launches for n, fn in kernels.items()}
+    stats = check_engine(eng, convs, swaps)
+    if cuda and min(launched.values()) <= 0:
+        raise AssertionError(f"a kernel of the MoE path never launched: "
+                             f"{launched}")
+    if cuda and launched["paged_attention"] != \
+            cfg.n_layers * stats["decode_steps"]:
+        raise AssertionError(f"paged attention counted "
+                             f"{launched['paged_attention']} times over "
+                             f"{stats['decode_steps']} decode steps of "
+                             f"{cfg.n_layers} layers")
+    if eng._token_hist_by_conv != warm._token_hist_by_conv:
+        raise AssertionError("the warm-up and the timed MoE runs gave other "
+                             "tokens")
+    # the same workload with swap tasks left to the threads, as
+    # launch.serve runs it: its wall, and every turn finished (its tokens
+    # may differ, since thread timing then picks which rows decode
+    # together)
+    free, free_wall, free_host, free_swaps = run_engine(bundle, convs,
+                                                        **sizes)
+    free_tokens = check_engine(free, convs, free_swaps)["tokens"]
+    del free
+    if cuda:
+        mem["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    bucket = (eng.runner.batch_bucket, eng.runner._pages_bucket)
+    snap = snaps.get(bucket) or max(snaps.values(), key=lambda s: s["active"])
+    oracle = moe_oracle(eng, snap)
+    # one replay of the last bucket's argmax-only graph over its fullest
+    # state (each replay advances the rows; the engine is done with them)
+    live = eng.runner._step_tensors(eng.pools.gpu)
+    replay = {"bucket": list(bucket), "active_rows": snap["active"]}
+    if cuda and all(a.shape == b.shape for a, b in zip(live, snap["clones"])):
+        for a, b in zip(live, snap["clones"]):
+            a.copy_(b)
+        ctx = snap["clones"][dr.STEP_TENSORS.index("context_lens")]
+        b_ms, b_by = bound_ms(moe_step_bytes(
+            bundle["params"], cfg, ctx, oracle["routed_experts_per_layer"]),
+            0)
+        dense_ms, _ = bound_ms(moe_step_bytes(bundle["params"], cfg, ctx), 0)
+        graph = eng.runner._graphs[False].graph
+        replay.update(ms=time_ms(graph.replay), bound_ms=b_ms, bound_by=b_by,
+                      dense_bound_ms=dense_ms)
+        replay["bound_share"] = replay["bound_ms"] / replay["ms"]
+        replay["dense_bound_share"] = dense_ms / replay["ms"]
+        if profile:
+            replay["profile"] = replay_ops(graph.replay)
+    out = {"arch": cfg.name, "wall_s": wall, "warm_wall_s": warm_wall,
+           "init_s": init_s, "tokens_per_s": stats["tokens"] / wall,
+           "host_s_by_method": host, "clock_hold_wait_s": hold["wait_s"],
+           "unheld_wall_s": free_wall,
+           "unheld_tokens_per_s": free_tokens / free_wall,
+           "unheld_host_s_by_method": free_host, "launches": launched,
+           "replays_checked": held, "replay": replay, "memory": mem,
+           "determinism": "warm-up and timed runs: equal token histories",
+           "oracle": oracle, **stats}
+    del eng, warm, snaps, snap, live, bundle
+    if cuda:
+        torch.cuda.empty_cache()
+    run = run_launcher(["--real", "--arch", MOE_ARCH, "--device", kind,
+                        "--conversations", "2", "--policy", "fastswitch"],
+                       out_dir)
+    r = run["results"]["fastswitch"]
+    if cuda and min(r["kernel_launches"].values()) <= 0:
+        raise AssertionError(f"serve --arch {MOE_ARCH}: a kernel never "
+                             f"launched: {r['kernel_launches']}")
+    out["launcher"] = {"wall_s": run["wall_s"],
+                       "total_tokens": r["total_tokens"],
+                       "preemptions": r["preemptions"],
+                       "callstack_wall_s": r["callstack_wall_s"],
+                       "kernel_launches": r["kernel_launches"],
+                       "stdout": run["stdout"][-2:]}
+    return out
+
+
+def moe_phase_alone(timeout: float = 900.0) -> dict:
+    """``moe_phase`` in a process of its own, ``scripts/moe_probe.py``
+    (which builds nothing new: the kernels' libraries are cached under
+    ``build/``), so that nothing the phase leaves in a process (41 GB of
+    allocations freed, dead runners' CUDA graphs, swap threads) precedes
+    phase 6's profiler sessions.  Returns the probe's ``moe`` line;
+    raises with its standard error where it exits non-zero."""
+    run = subprocess.run([sys.executable,
+                          str(ROOT / "scripts" / "moe_probe.py")],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=timeout)
+    if run.returncode != 0:
+        raise AssertionError(f"the moe phase exited {run.returncode}: "
+                             f"{run.stderr[-4000:]}")
+    out = json.loads(next(line for line in run.stdout.splitlines()
+                          if line.startswith('{"phase": "moe"')))
+    out.pop("phase")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1650,15 +2049,27 @@ def main() -> int:
     engine_case = attention_case(8, 64, dev, seed=1, ctx_range=(256, 600))
     attn["B8_pages64_ctx256_600"] = (engine_case,
                                      check_attention(engine_case))
+    # the same bucket at olmoe-1b-7b's heads: 16 / 16, a GQA group of 1
+    g1_case = attention_case(8, 64, dev, seed=2, ctx_range=(256, 600),
+                             Hq=16, Hkv=16)
+    attn["B8_pages64_g1"] = (g1_case, check_attention(g1_case))
     timed = attn["B32_pages128"][0]
     a_times = time_attention(timed, flush)
     a_bytes, a_flops = attention_work(timed)
     a_engine_times = time_attention(engine_case, flush)
+    a_g1_times = time_attention(g1_case, flush)
     a_bounds = {k: bound_ms(*attention_work(attn[k][0]))[0]
-                for k in ("B32_pages128", "B8_pages64_ctx256_600")}
+                for k in ("B32_pages128", "B8_pages64_ctx256_600",
+                          "B8_pages64_g1")}
     copies = copy_case(dev, seed=1)
     slab, dst_runs = check_copies(copies)
     gather_t, scatter_t, c_bytes = time_copies(copies, dst_runs, flush)
+    # the same chunk over olmoe-1b-7b's pool: 32 planes of 64 KiB rows
+    moe_copies = copy_case(dev, seed=2, L=16, Hkv=16)
+    _, moe_dst_runs = check_copies(moe_copies)
+    moe_gather_t, moe_scatter_t, moe_c_bytes = time_copies(
+        moe_copies, moe_dst_runs, flush)
+    del moe_copies
     c2 = copy_2d_case(copies)
     outs = check_block_copies(c2, slab)
     block_t = time_block_copies(c2, flush)
@@ -1675,8 +2086,11 @@ def main() -> int:
     gla_t = time_gla(gla_in, flush)
     all_timed = {"paged_attention_B32_pages128": a_times,
                  "paged_attention_B8_pages64": a_engine_times,
+                 "paged_attention_B8_pages64_g1": a_g1_times,
                  "block_gather_runs": gather_t,
                  "block_scatter_runs": scatter_t,
+                 "block_gather_runs_olmoe": moe_gather_t,
+                 "block_scatter_runs_olmoe": moe_scatter_t,
                  **{k: t for k, (t, _) in block_t.items()},
                  **{f"flash_attention_B{B}_T{T_len}": f["times"]
                     for (B, T_len), f in flash.items()},
@@ -1685,7 +2099,9 @@ def main() -> int:
          paged_attention={k: err for k, (_, err) in attn.items()},
          paged_attention_bound_ms=a_bounds,
          attention_tolerance={"atol": ATTN_ATOL, "rtol": ATTN_RTOL},
-         run_copies="byte-equal",
+         run_copies="byte-equal with their plain versions, at qwen2-1.5b's "
+                    "pool (56 planes of 8 KB rows) and olmoe-1b-7b's (32 "
+                    "planes of 64 KiB rows)",
          block_copies="byte-equal with their plain versions and the "
                       "gather's slab",
          block_copy_pairs=c2["si"].numel(),
@@ -1828,6 +2244,12 @@ def main() -> int:
         px = prefix_phase(bundle, Path(tmp))
     emit("prefix", nvidia_smi=smi[0], **px)
 
+    # 5g. MoE serving: olmoe-1b-7b at full width, then its launcher, in a
+    # process of its own
+    torch.cuda.empty_cache()
+    mo = moe_phase_alone()
+    emit("moe", **mo)
+
     # 6. device times of phase 3's calls, after the timed engine runs
     for t in all_timed.values():
         add_device_times(t, flush)
@@ -1883,7 +2305,9 @@ def main() -> int:
                 "engine": launched[kname],
                 "frontend_per_replica": [c[kname] for c in
                                          fe["launches_per_replica"]],
-                "prefix_launcher": px["kernel_launches"][kname]}}
+                "prefix_launcher": px["kernel_launches"][kname],
+                "moe_engine": mo["launches"][kname],
+                "moe_launcher": mo["launcher"]["kernel_launches"][kname]}}
                if path == serving else {}),
             "ms": times["ms"], "plain_ms": times["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by,
@@ -1892,6 +2316,21 @@ def main() -> int:
             "bound_share": b_ms / times["device_ms"],
             "library_device_ms": times["library_device_ms"]})
     rows[-1]["library"] = "none: no single PyTorch call computes the scan"
+    # paged attention at olmoe-1b-7b's group of 1, the engine's bucket
+    g1_bound, g1_by = bound_ms(*attention_work(g1_case))
+    rows[0]["group1_B8_pages64"] = {
+        "max_abs_err": attn["B8_pages64_g1"][1],
+        "bound_ms": g1_bound, "bound_by": g1_by,
+        **{k: a_g1_times[k] for k in ("ms", "plain_ms", "library_ms",
+                                      "device_ms", "library_device_ms")}}
+    # the run copies at olmoe-1b-7b's pool layout, byte-equal above
+    for row, t in ((rows[1], moe_gather_t), (rows[2], moe_scatter_t)):
+        m_bound, m_by = bound_ms(moe_c_bytes, 0)
+        row["olmoe_layout"] = {
+            "max_abs_err": 0.0, "bound_ms": m_bound, "bound_by": m_by,
+            "bound_share": m_bound / t["device_ms"],
+            **{k: t[k] for k in ("ms", "plain_ms", "library_ms",
+                                 "device_ms", "library_device_ms")}}
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -26,6 +26,8 @@ _REGISTRY: Dict[str, str] = {
     "qwen2-1.5b": "repro_torch.configs.qwen2_1p5b",
     "llama3.2-3b": "repro_torch.configs.llama3p2_3b",
     "mistral-nemo-12b": "repro_torch.configs.mistral_nemo_12b",
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    "llava-next-mistral-7b": "repro_torch.configs.llava_next_mistral_7b",
 }
 
 

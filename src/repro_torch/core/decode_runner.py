@@ -55,7 +55,10 @@ discarded and their KV write lands in the reserved trash block.
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
+import gc
+import threading
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -118,6 +121,31 @@ STEP_TENSORS = ("pool", "block_tables", "context_lens", "tokens", "active",
                 "keys", "sampling")
 
 
+_gc_lock = threading.Lock()
+_gc_pauses = [0, False]          # captures running, collector was enabled
+
+
+@contextlib.contextmanager
+def _gc_paused():
+    """Keep Python's cyclic garbage collector off while any thread
+    captures.  A collection inside a capture can free a dead runner's
+    CUDA graphs, and releasing their memory is not permitted while a
+    stream captures: the capture is invalidated.  (``torch.cuda.graph``
+    collects before each capture for the same reason.)"""
+    with _gc_lock:
+        if _gc_pauses[0] == 0:
+            _gc_pauses[1] = gc.isenabled()
+            gc.disable()
+        _gc_pauses[0] += 1
+    try:
+        yield
+    finally:
+        with _gc_lock:
+            _gc_pauses[0] -= 1
+            if _gc_pauses[0] == 0 and _gc_pauses[1]:
+                gc.enable()
+
+
 class _StepGraph:
     """One variant (argmax-only or sampled) of the decode step of one
     (batch, pages) bucket, captured once over the bucket's tensors and
@@ -143,7 +171,8 @@ class _StepGraph:
     the graph: a side stream is non-blocking, so work on the default
     stream does not wait on it.  ``torch.cuda.graph`` is not used, since
     it synchronises the whole device and empties the allocator's cache
-    before a capture."""
+    before a capture; the cyclic garbage collector is paused instead
+    (``_gc_paused``)."""
 
     def __init__(self, step: Callable, tensors: Tuple[torch.Tensor, ...],
                  stream: Optional[torch.cuda.Stream]):
@@ -153,7 +182,7 @@ class _StepGraph:
         self.launches: collections.Counter = collections.Counter()
         if tensors[0].is_cuda:
             self.graph = torch.cuda.CUDAGraph()
-            with launches.capture() as self.launches, \
+            with launches.capture() as self.launches, _gc_paused(), \
                     torch.cuda.stream(stream):
                 self.graph.capture_begin(capture_error_mode="thread_local")
                 try:

@@ -1,8 +1,11 @@
 """Paged-KV decode step and chunked prefill for the serving engine.
 
 Counterpart of ``repro/models/paged.py`` (single-device branch).  Runs a
-uniform dense GQA transformer one token per sequence against the paged
-pool through block tables, with the hand-written paged-attention kernel.
+uniform GQA transformer (dense or MoE FFN) one token per sequence
+against the paged pool through block tables, with the hand-written
+paged-attention kernel.  A MoE layer routes every row of the step (or
+every position of a padded prefill chunk) in one call, as the
+reference's does, so its capacity counts padding rows too.
 The engine pads the batch to a bucket; padding rows point their block
 table at a reserved trash block and are masked by the caller.
 
@@ -10,7 +13,9 @@ Where the reference DONATES the pool, the context lengths, the last
 tokens or the prefill carries, the port writes in place on the tensors it
 was given and returns them, so the call sites keep the reference's
 "rebind to the result" form.  The per-layer KV write is a plain in-place
-index write on the pool.
+index write on the pool; rows that share a slot (freed rows, on the trash
+block) all write the last such row's K/V, so the pool's bytes do not
+depend on the order in which the write's threads land.
 
 Sampling (temperature / top-k / top-p) is fused into the step as in the
 reference, with the reference's random streams (``models/prng.py``).  The
@@ -30,7 +35,8 @@ from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import prng
-from repro_torch.models.transformer import check_supported, unstack_layers
+from repro_torch.models.transformer import (check_supported, ffn,
+                                            unstack_layers)
 
 
 def supports_paged(cfg: ModelConfig) -> bool:
@@ -68,6 +74,13 @@ def _decode_hidden(params, pool, block_tables, context_lens, tokens,
     page = torch.clamp(context_lens // bs, max=n_pages - 1).long()
     blk = block_tables.gather(1, page[:, None])[:, 0].long()
     off = (context_lens % bs).long()
+    # rows that share a slot (freed rows all write the trash block's first
+    # slot) write the last such row's K/V, so the write does not depend on
+    # the launch's order (a MoE row's K/V depends on the rows before it
+    # through capacity); every live row owns its slot
+    slot = blk * bs + off
+    rows = torch.arange(B, device=slot.device)
+    last = torch.where(slot[:, None] == slot[None, :], rows, -1).amax(dim=1)
     ctx1 = context_lens + 1
     for layer, lp in enumerate(unstack_layers(params["layers"])):
         pool_l = pool[layer]                               # (2, nb, bs, H, D)
@@ -75,14 +88,14 @@ def _decode_hidden(params, pool, block_tables, context_lens, tokens,
         q, k, v = attn._project_qkv(lp["attn"], h, cfg)
         q = L.rope_apply(q, cos, sin)
         k = L.rope_apply(k, cos, sin)
-        pool_l[0, blk, off] = k[:, 0].to(pool.dtype)
-        pool_l[1, blk, off] = v[:, 0].to(pool.dtype)
+        pool_l[0, blk, off] = k[last, 0].to(pool.dtype)
+        pool_l[1, blk, off] = v[last, 0].to(pool.dtype)
         a = ops.paged_attention(q[:, 0].contiguous(), pool_l[0], pool_l[1],
                                 block_tables, ctx1, scale,
                                 pages_per_compute_block=ppcb)
         x = x + (a.reshape(B, 1, -1) @ lp["attn"]["wo"].to(x.dtype))
         h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-        x = x + L.swiglu(lp["ffn"], h)
+        x = x + ffn(lp, h, cfg)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return x[:, 0], pool
 
@@ -197,7 +210,7 @@ def _prefill_chunk_core(params, tokens, k_carry, v_carry, prefix_len: int,
         a = attn._sdpa(q, kc[None], vc[None], mask, scale)
         x = x + (a.reshape(B, C_pad, -1) @ lp["attn"]["wo"].to(x.dtype))
         h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-        x = x + L.swiglu(lp["ffn"], h)
+        x = x + ffn(lp, h, cfg)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     # unembed ONLY the last real position
     x_last = x[0, chunk_len - 1:chunk_len]                 # (1, d)

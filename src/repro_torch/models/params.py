@@ -12,6 +12,12 @@ from repro_torch.models.transformer import count_params
 
 
 def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
-    """Exact parameter count.  ``active_only`` equals the total for the
-    dense models the port serves (no routed experts)."""
-    return count_params(cfg)
+    """Exact parameter count.  ``active_only`` subtracts the routed
+    experts a token does not activate, as the reference does: total -
+    (E - top_k) / E * routed expert parameters."""
+    total = count_params(cfg)
+    if not active_only or cfg.moe is None:
+        return total
+    m = cfg.moe
+    routed = 3 * cfg.d_model * m.d_expert_ff * m.n_experts * cfg.n_layers
+    return total - int(routed * (m.n_experts - m.top_k) / m.n_experts)

@@ -338,3 +338,24 @@ def test_sampled_variants_count_as_the_reference_jit(models):
         why = explain_divergence(tb, th[1], jh[1], rid=1, seed=5,
                                  sampling=smp, first_tokens=())
         assert why, (th[1], jh[1])
+
+
+def test_captures_pause_the_garbage_collector():
+    """While any capture runs, the cyclic collector is off (a collection
+    there could free a dead runner's graphs, which invalidates the
+    capture); nested pauses restore it only when the last one ends."""
+    import gc
+    assert gc.isenabled()
+    with dr._gc_paused():
+        assert not gc.isenabled()
+        with dr._gc_paused():
+            assert not gc.isenabled()
+        assert not gc.isenabled()
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        with dr._gc_paused():
+            pass
+        assert not gc.isenabled()
+    finally:
+        gc.enable()

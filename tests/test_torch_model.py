@@ -67,7 +67,8 @@ def test_config_matches_reference(getter):
     want = getattr(jax_configs, getter)(ARCH)
     got = getattr(configs, getter)(ARCH)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
-    assert configs.list_archs() == [ARCH, "llama3.2-3b", "mistral-nemo-12b"]
+    assert configs.list_archs() == [ARCH, "llama3.2-3b", "mistral-nemo-12b",
+                                    "olmoe-1b-7b", "llava-next-mistral-7b"]
     assert count_params_analytic(got) == jax_count(want)
 
 

@@ -20,7 +20,6 @@ would otherwise stay in flight for one more poll, so ``n_conflicts`` and
 ``n_syncs`` (and what follows from them) would depend on how fast the
 threads ran.  Both packages are held so, the same way.
 """
-import concurrent.futures
 import json
 import os
 import re
@@ -49,16 +48,14 @@ SIM_RUNS = {
 
 
 @pytest.fixture
-def swaps_follow_the_clock(monkeypatch):
-    """Make ``SwapTask.is_completed`` of both packages wait for the task's
-    copy before it compares clocks: completions then follow the simulated
+def swaps_follow_the_clock():
+    """``chip_smoke.swaps_follow_the_clock`` over both packages'
+    ``SwapTask``: a task the simulated clock has passed waits for its
+    copy before it reports complete, so completions follow the simulated
     clock alone, while the copies still run on the worker threads."""
-    for module in (jax_swap_manager, torch_swap_manager):
-        def is_completed(task, now_us, _real=module.SwapTask.is_completed):
-            if task.future is not None:
-                concurrent.futures.wait([task.future])
-            return _real(task, now_us)
-        monkeypatch.setattr(module.SwapTask, "is_completed", is_completed)
+    with chip_smoke.swaps_follow_the_clock(jax_swap_manager,
+                                           torch_swap_manager) as held:
+        yield held
 
 
 def _launch(module, argv, tmp_path, tag, capsys, monkeypatch, events=True):
