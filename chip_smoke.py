@@ -31,12 +31,24 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                public API ``repro_torch.kernels.ops`` at those widths, with
                their launch counts set to 0 just before and read just
                after; no serving-path module calls them.
+  3c. swap   — one 64-block swap (phase 3's chunk, three runs) out of a
+               ``PagedPools`` and back in, at qwen2-1.5b's pool layout (448
+               KiB blocks) and olmoe-1b-7b's (2 MiB), three ways: per block
+               (64 ``copy_out([g], [c])``, then 64 ``copy_in``), one
+               ``copy_out`` / ``copy_in`` call, and ``copy_out_staged`` /
+               ``copy_in_staged``; three runs each, every way's host and
+               device blocks byte-equal to the pool before; host ms and
+               GB/s of each leg beside the host link's rate (one pinned
+               ``copy_`` of the same bytes each way).
   4. engine  — qwen2-1.5b at full width (random weights from a seed) served
                by ``ServingEngine`` in real mode with the fastswitch policy
                and a KV pool small enough to force preemption; every turn
                must finish, every conversation swapped out and back in, no
                swap copy retried or failed, every kernel launched, and
-               paged attention once per layer per decode step.  Each
+               paged attention once per layer per decode step.  Both runs
+               hold swap tasks to the simulated clock: they make 81
+               swap-outs and 156 swap-in sub-slabs, and the timed run's
+               tokens equal the warm-up's.  Each
                decode step after a bucket's first replays the bucket's
                captured CUDA graph (``graphs_captured``, ``graph_replays``,
                ``eager_steps``).  Wall seconds and tokens/s are measured;
@@ -44,6 +56,12 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                A10 cost model, and named so.
   5. e2e     — every conversation's greedy tokens against a plain dense
                forward (no pages, plain attention) on the card.
+  5a. oracle — every conversation replayed straight through the exact-shape
+               data plane on the card (``prefill_kv`` of the history,
+               ``PagedPools.write_tokens``, then ``paged_decode_step`` at
+               batch 1 per token): the engine's greedy tokens equal the
+               oracle's, or first differ at a near-tie of the oracle's
+               logits (0.05).
   5b. sampling — a full-width ``ServingEngine`` serving eight requests in
                one batch, the odd ones at ``SamplingParams(temperature=0.8,
                top_k=50, top_p=0.9)``, the even ones greedy: greedy tokens
@@ -99,7 +117,15 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                against the same step with its plain version, routed alike
                (``moe_oracle``); one replay's ms beside the step's bound
                (the routed experts' weights and walked KV over HBM) and
-               its dense-dispatch bound; peak memory.  Then the
+               its dense-dispatch bound; peak memory; the held runs make
+               74 swap-outs and 142 swap-in sub-slabs.  Beside such
+               replays, back to back, a staged swap-in of 64 blocks at
+               olmoe's layout from a worker thread, under
+               ``torch.profiler``: the time its copies and scatters
+               overlap the replays' kernels, whether each sub-slab's
+               upload starts before the previous one's scatter ends, and
+               its completion beside a replay alone and the swap alone
+               (``overlap_probe``).  Then the
                launcher's ``--real --arch olmoe-1b-7b --conversations 2``
                as a subprocess.  The phase runs in a process of its own,
                ``scripts/moe_probe.py`` (``--profile`` there adds the
@@ -111,7 +137,13 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                (CUPTI) attached, which adds host time to every later
                launch.  A session that comes back without its device
                events is made again, up to three times
-               (``profiler_sessions_made_again``).
+               (``profiler_sessions_made_again``); where all three came
+               back empty (seen late in this process on an H100 while
+               younger processes' sessions held their events; cause not
+               found), the time is the CUDA events' around each call
+               queued behind a sleep kernel (``queued_ms``), which is
+               also taken for every call beside the profiler's
+               (``events``, ``device_ms_by``).
   (profile)  — with ``--profile`` only: one more engine run under
                ``torch.profiler``; the device's idle share of its wall time,
                its operations by device time, and the paged-attention
@@ -129,6 +161,7 @@ of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -207,6 +240,42 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, flush=None) -> float:
         end.synchronize()
         total += start.elapsed_time(end)
     return total / iters
+
+
+def queued_ms(fn, iters: int = 20, warmup: int = 3, flush=None,
+              sleep_cycles: int = 2 ** 27, tries: int = 3) -> float:
+    """Mean device time of ``fn`` in ms from CUDA events alone: every call
+    (each after ``time_ms``'s L2 flush) is queued behind a sleep kernel,
+    so the card runs them back to back and the events around each call
+    time its kernels without the host's launch time.  Holds only where
+    the last call was queued before the sleep ended; otherwise the sleep
+    is doubled and the calls made again, and after ``tries`` an error is
+    raised.  The profiler-free reading of ``device_ms``."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        marks = [(torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+                 for _ in range(iters)]
+        asleep = torch.cuda.Event()
+        torch.cuda._sleep(sleep_cycles)
+        asleep.record()
+        for start, end in marks:
+            if flush is not None:
+                flush.zero_()
+            start.record()
+            fn()
+            end.record()
+        queued = not asleep.query()
+        torch.cuda.synchronize()
+        if queued:
+            return sum(s.elapsed_time(e) for s, e in marks) / iters
+        sleep_cycles *= 2
+    raise AssertionError(f"the card ran the calls before the last was "
+                         f"queued, {tries} times, the last behind "
+                         f"{sleep_cycles // 2} cycles of sleep")
 
 
 def kernel_ms(events, iters: int, skip=frozenset(),
@@ -310,11 +379,27 @@ def timings(kernel, plain, library, flush) -> dict:
 
 def add_device_times(timed: dict, flush) -> None:
     """``device_ms`` and ``library_device_ms`` of a ``timings`` result,
-    from its kept callables (which it then drops)."""
+    from its kept callables (which it then drops): the profiler's
+    reading (``device_ms``), or, where its sessions came back without
+    their device events every time, the CUDA events' (``queued_ms``),
+    which is also kept beside it as ``events_ms`` and
+    ``library_events_ms``; ``device_ms_by`` and ``library_device_ms_by``
+    name the reading used."""
     kernel, library = timed.pop("fns")
-    timed["device_ms"] = device_ms(kernel, flush=flush)
-    timed["library_device_ms"] = (None if library is None
-                                  else device_ms(library, flush=flush))
+    for key, fn in (("", kernel), ("library_", library)):
+        if fn is None:
+            timed.update({f"{key}device_ms": None, f"{key}events_ms": None,
+                          f"{key}device_ms_by": None})
+            continue
+        timed[f"{key}events_ms"] = queued_ms(fn, flush=flush)
+        try:
+            timed[f"{key}device_ms"] = device_ms(fn, flush=flush)
+            timed[f"{key}device_ms_by"] = "profiler"
+        except AssertionError as fault:
+            print(f"device time from CUDA events instead: {fault}",
+                  file=sys.stderr, flush=True)
+            timed[f"{key}device_ms"] = timed[f"{key}events_ms"]
+            timed[f"{key}device_ms_by"] = "cuda_events"
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -750,6 +835,278 @@ def run_ops_path(c2, qkv, gla_in, outs):
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: the swap plane, three ways, against the host link
+# ---------------------------------------------------------------------------
+
+# the pools' block layouts of the two served models: L layers x K/V x
+# 16 tokens x Hkv heads x D bf16 (qwen2-1.5b 448 KiB a block, olmoe-1b-7b
+# 2 MiB)
+SWAP_LAYOUTS = {"qwen2-1.5b": dict(L=28, Hkv=2, D=128),
+                "olmoe-1b-7b": dict(L=16, Hkv=16, D=128)}
+# one 64-block swap: phase 3's chunk, three runs
+SWAP_RUNS = ((3, 20), (40, 12), (100, 32))
+# the swap counts of the engine and moe phases' held runs at full width
+# (swap-outs, swap-in sub-slabs), as every run since PR 17 (qwen2) and
+# PR 20 (olmoe) gave them
+ENGINE_SWAPS = (81, 156)
+MOE_SWAPS = (74, 142)
+# the host seconds in the staged calls before the swap plane had streams
+# of its own (PERF.md, PR 20: qwen2 call 6, olmoe call 7)
+EARLIER_STAGED_S = {
+    "qwen2-1.5b": {"copy_in_staged": 0.463, "copy_out_staged": 0.281,
+                   "source": "PERF.md, PR 20 call 6"},
+    "olmoe-1b-7b": {"copy_in_staged": 2.098, "copy_out_staged": 0.492,
+                    "source": "PERF.md, PR 20 call 7"}}
+
+
+def _sync(device) -> None:
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def swap_pools(device, seed: int, L: int, Hkv: int, D: int, bs: int = 16,
+               nb: int = 160, nc: int = 160):
+    """A ``PagedPools`` of ``nb`` device and ``nc`` host blocks at the
+    layout (L, Hkv, D), the device pool filled with seeded normal bf16
+    values; with the swap's runs, its block ids and 64 scattered host
+    block ids."""
+    import numpy as np
+    import torch
+    from repro_torch.cache.paged import PagedPools, PoolSpec
+    spec = PoolSpec(n_layers=L, n_kv_heads=Hkv, head_dim=D, block_size=bs,
+                    num_gpu_blocks=nb, num_cpu_blocks=nc)
+    pools = PagedPools(spec, device=device)
+    pools.gpu.normal_(generator=torch.Generator(device=device)
+                      .manual_seed(seed))
+    runs = list(SWAP_RUNS)
+    blocks = [b for s, n in runs for b in range(s, s + n)]
+    cpu_ids = np.random.RandomState(seed).permutation(nc)[:len(blocks)]
+    _sync(device)
+    return pools, runs, blocks, [int(c) for c in cpu_ids]
+
+
+def swap_ways(pools, runs, blocks, cpu_ids, repeats: int = 3) -> dict:
+    """One 64-block swap out of the device pool and back in, three ways,
+    ``repeats`` times each: ``per_block`` (a ``copy_out([g], [c])`` per
+    block, then a ``copy_in([c], [g])`` per block), ``one_call`` (one
+    ``copy_out`` and one ``copy_in`` for all blocks) and ``staged``
+    (``copy_out_staged`` / ``copy_in_staged`` over the runs).  Every way's
+    host blocks must equal the device blocks before, byte for byte, and
+    so must the device blocks after its swap-in (which starts from
+    zeroed blocks).  Host ms of each leg and GB/s over the swap's bytes;
+    beside them, the host link's own rate: one pinned ``copy_`` of the
+    same bytes each way, ``repeats`` times."""
+    import numpy as np
+    import torch
+    dev = pools.device
+    idx = torch.as_tensor(blocks, device=dev)
+    before = pools.gpu[:, :, idx].clone()
+    want = before.cpu().view(torch.int16).numpy().view(np.uint16)
+    nbytes = len(blocks) * pools.spec.block_bytes()
+    pairs = list(zip(blocks, cpu_ids))
+    legs = {
+        "per_block": (lambda: [pools.copy_out([g], [c]) for g, c in pairs],
+                      lambda: [pools.copy_in([c], [g]) for g, c in pairs]),
+        "one_call": (lambda: pools.copy_out(blocks, cpu_ids),
+                     lambda: pools.copy_in(cpu_ids, blocks)),
+        "staged": (lambda: pools.copy_out_staged(runs, cpu_ids),
+                   lambda: pools.copy_in_staged(cpu_ids, runs))}
+    out = {}
+    for way, (leg_out, leg_in) in legs.items():
+        rec = out[way] = {"out_ms": [], "in_ms": []}
+        for _ in range(repeats):
+            pools.cpu[:, :, cpu_ids] = 0
+            t0 = time.perf_counter()
+            leg_out()
+            rec["out_ms"].append((time.perf_counter() - t0) * 1e3)
+            if not np.array_equal(pools.cpu[:, :, cpu_ids], want):
+                raise AssertionError(f"swap {way}: the host blocks differ "
+                                     "from the device blocks before")
+            pools.gpu[:, :, idx] = 0
+            _sync(dev)
+            t0 = time.perf_counter()
+            leg_in()
+            _sync(dev)
+            rec["in_ms"].append((time.perf_counter() - t0) * 1e3)
+            if not _bytes_equal(pools.gpu[:, :, idx], before):
+                raise AssertionError(f"swap {way}: the device blocks after "
+                                     "the swap-in differ from before")
+        for leg in ("out", "in"):
+            rec[f"{leg}_gb_s"] = [nbytes / ms / 1e6 for ms in rec[f"{leg}_ms"]]
+    link = {"d2h_ms": [], "h2d_ms": []}
+    if dev.type == "cuda":
+        host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        buf = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        for _ in range(repeats):
+            for key, dst, src in (("d2h_ms", host, buf), ("h2d_ms", buf, host)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dst.copy_(src, non_blocking=True)
+                torch.cuda.synchronize()
+                link[key].append((time.perf_counter() - t0) * 1e3)
+        for key in ("d2h", "h2d"):
+            link[f"{key}_gb_s"] = [nbytes / ms / 1e6
+                                   for ms in link[f"{key}_ms"]]
+    return {"bytes": nbytes, "block_bytes": pools.spec.block_bytes(),
+            "blocks": len(blocks), "runs": [list(r) for r in runs],
+            "ways": out, "link": link,
+            "byte_equal": "every way's host and device blocks equal the "
+                          "device blocks before"}
+
+
+def swap_phase(device, layouts=None, repeats: int = 3) -> dict:
+    """``swap_ways`` at each layout of ``layouts`` (by default both served
+    models' pools, ``SWAP_LAYOUTS``)."""
+    out = {}
+    for i, (arch, layout) in enumerate((layouts or SWAP_LAYOUTS).items()):
+        pools, runs, blocks, cpu_ids = swap_pools(device, 7 + i, **layout)
+        out[arch] = swap_ways(pools, runs, blocks, cpu_ids, repeats)
+        del pools
+    return out
+
+
+def _union(spans):
+    """Merged (start, end) intervals of ``spans``."""
+    merged = []
+    for s, e in sorted(spans):
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+    return merged
+
+
+def _overlap_us(a, b) -> float:
+    """Length of the intersection of two merged interval lists."""
+    total, i, j = 0.0, 0, 0
+    while i < len(a) and j < len(b):
+        lo, hi = max(a[i][0], b[j][0]), min(a[i][1], b[j][1])
+        total += max(0.0, hi - lo)
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def overlap_from_trace(events, slab_bytes: int) -> dict:
+    """A staged swap-in beside a decode replay, read from a profiler trace
+    (``export_chrome_trace``'s ``traceEvents``): the uploads are the
+    host-to-device copies of at least ``slab_bytes``, the scatters the
+    run-copy kernels, and the swap's streams theirs; every other device
+    operation is the replay's.  Returns the device time in which the
+    swap's operations overlap the replay's, each side's span, the swap's
+    end after the replay's start, and per sub-slab k whether upload k+1
+    starts before scatter k ends."""
+    dev_ops = [e for e in events if e.get("ph") == "X"
+               and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    ups = sorted((e for e in dev_ops if e["cat"] == "gpu_memcpy"
+                  and "HtoD" in e["name"]
+                  and e.get("args", {}).get("bytes", 0) >= slab_bytes),
+                 key=lambda e: e["ts"])
+    scs = sorted((e for e in dev_ops if e["cat"] == "kernel"
+                  and "copy_runs_kernel" in e["name"]),
+                 key=lambda e: e["ts"])
+    if not ups or len(ups) != len(scs):
+        raise AssertionError(f"the trace holds {len(ups)} slab uploads and "
+                             f"{len(scs)} scatters: one each per sub-slab")
+    swap_streams = {e["args"]["stream"] for e in ups + scs}
+    swap = [e for e in dev_ops if e["args"]["stream"] in swap_streams]
+    replay = [e for e in dev_ops if e["args"]["stream"] not in swap_streams]
+    if not replay:
+        raise AssertionError("the trace holds no operation of the replay")
+    span = lambda ev: (min(e["ts"] for e in ev),
+                       max(e["ts"] + e["dur"] for e in ev))
+    (r0, r1), (s0, s1) = span(replay), span(swap)
+    ahead = [ups[k + 1]["ts"] < scs[k]["ts"] + scs[k]["dur"]
+             for k in range(len(scs) - 1)]
+    return {"overlap_ms": _overlap_us(
+                _union((e["ts"], e["ts"] + e["dur"]) for e in swap),
+                _union((e["ts"], e["ts"] + e["dur"]) for e in replay)) / 1e3,
+            "replay_span_ms": (r1 - r0) / 1e3, "swap_span_ms": (s1 - s0) / 1e3,
+            "swap_end_after_replay_start_ms": (s1 - r0) / 1e3,
+            "sub_slabs": len(scs), "upload_next_before_scatter_ends": ahead,
+            "replay_ops": len(replay), "swap_ops": len(swap)}
+
+
+def overlap_probe(replay, device, repeats: int = 3) -> dict:
+    """A staged swap-in of 64 blocks at olmoe-1b-7b's pool layout (its own
+    pool, so no block is shared with the replay) issued from a worker
+    thread while ``replay`` (one captured decode step) runs on this
+    thread's stream, back to back as the engine decodes, under
+    ``torch.profiler`` (``overlap_from_trace``): as many replays are
+    queued first as cover the swap-in alone, plus one, since its host
+    gathers take about as long as one replay.  Beside it the replay alone
+    (CUDA events) and the swap-in alone (host ms of ``copy_in_staged``),
+    ``repeats`` times each, and the host ms of the worker's call in the
+    overlapped run.  The swapped-in blocks must equal the blocks swapped
+    out."""
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    pools, runs, blocks, cpu_ids = swap_pools(
+        device, 11, **SWAP_LAYOUTS["olmoe-1b-7b"])
+    idx = torch.as_tensor(blocks, device=pools.device)
+    pools.copy_out_staged(runs, cpu_ids)
+    want = pools.gpu[:, :, idx].clone()
+
+    def swap_in():
+        pools.gpu[:, :, idx] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pools.copy_in_staged(cpu_ids, runs)
+        return (time.perf_counter() - t0) * 1e3
+    swap_alone = [swap_in() for _ in range(repeats)]
+    replay_alone = [time_ms(replay, iters=5, warmup=1)
+                    for _ in range(repeats)]
+    n_replays = math.ceil(sorted(swap_alone)[repeats // 2]
+                          / min(replay_alone)) + 1
+    stage = pools.stage_blocks * pools.spec.block_bytes()
+
+    def beside():
+        """The profiled run; a session that comes back without the
+        swap's or the replay's device events is made again
+        (``remeasured``)."""
+        pools.gpu[:, :, idx] = 0
+        torch.cuda.synchronize()
+        worker = {}
+
+        def run():
+            t0 = time.perf_counter()
+            try:
+                pools.copy_in_staged(cpu_ids, runs)
+            except BaseException as fault:    # raised on this thread below
+                worker["fault"] = fault
+            worker["ms"] = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_replays):
+                replay()
+            th = threading.Thread(target=run)
+            th.start()
+            th.join()
+            torch.cuda.synchronize()
+        if "fault" in worker:
+            raise worker["fault"]
+        if not _bytes_equal(pools.gpu[:, :, idx], want):
+            raise AssertionError("the swap-in beside the replay restored "
+                                 "other bytes than were swapped out")
+        with tempfile.NamedTemporaryFile(suffix=".json") as f:
+            prof.export_chrome_trace(f.name)
+            with open(f.name) as trace:
+                events = json.load(trace)["traceEvents"]
+        return overlap_from_trace(events, stage), worker["ms"]
+    out, host_ms = remeasured(beside)
+    out.update(replays=n_replays, replay_alone_ms=replay_alone,
+               swap_in_alone_ms=swap_alone,
+               swap_in_beside_replay_host_ms=host_ms,
+               blocks=len(blocks), block_bytes=pools.spec.block_bytes(),
+               sub_slab_bytes=stage)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the engine
 # ---------------------------------------------------------------------------
 
@@ -835,9 +1192,11 @@ def run_engine(bundle, convs, *, gpu_blocks: int, cpu_blocks: int,
     return eng, time.perf_counter() - t0, host, swaps
 
 
-def check_engine(eng, convs, swaps) -> dict:
+def check_engine(eng, convs, swaps, expect_swaps=None) -> dict:
     """Every turn finished, preemption happened, every conversation was
-    swapped out and back in, and no swap copy failed.  A copy that raises
+    swapped out and back in, no swap copy failed, and, given
+    ``expect_swaps`` (swap-outs, swap-in sub-slabs), the run made exactly
+    those staged calls.  A copy that raises
     (a failed build or launch, a wrapper's refusal) is retried and then
     recovered by recomputing the request's KV, so the turns still finish:
     only the failure counters show it."""
@@ -863,6 +1222,10 @@ def check_engine(eng, convs, swaps) -> dict:
     if pools.staged_out_calls <= 0 or pools.staged_in_calls <= 0:
         raise AssertionError(f"swaps out {pools.staged_out_calls}, in "
                              f"{pools.staged_in_calls}: both must be > 0")
+    made = (pools.staged_out_calls, pools.staged_in_calls)
+    if expect_swaps is not None and made != tuple(expect_swaps):
+        raise AssertionError(f"staged swaps out and in {made}, expected "
+                             f"{tuple(expect_swaps)}")
     by_conv = {c.conv_id: [swaps.get((c.conv_id, "out"), 0),
                            swaps.get((c.conv_id, "in"), 0)] for c in convs}
     unswapped = [c for c, (o, i) in by_conv.items() if o <= 0 or i <= 0]
@@ -883,6 +1246,7 @@ def check_engine(eng, convs, swaps) -> dict:
             "tokens": m.total_tokens, "preemptions": m.preemptions,
             "swap_out_calls": pools.staged_out_calls,
             "swap_in_calls": pools.staged_in_calls,
+            "fenced_swap_ins": pools.fenced_swap_ins,
             "d2h_transfers": pools.d2h_transfers,
             "h2d_transfers": pools.h2d_transfers,
             "swaps_out_in_by_conv": by_conv, **failures,
@@ -1055,6 +1419,97 @@ def check_history(bundle, hist, generated, tol: float = NEAR_TIE) -> dict:
                              f"{worst} below the dense maximum (>= {tol})")
     return {"generated": len(generated), "equal": equal,
             "near_ties": len(generated) - equal, "max_gap": worst,
+            "tolerance": tol}
+
+
+def exact_shape_history(bundle, conv, want, block_size: int = 16,
+                        tol: float = NEAR_TIE) -> dict:
+    """Replay one conversation straight through the exact-shape data plane:
+    each turn's prompt (``synth_prompt_ids``, as the replay client sends
+    it) appended to the history, ``prefill_kv`` of the whole history,
+    ``PagedPools.write_tokens`` of its K/V from block 0, the greedy first
+    token, then one ``paged_decode_step`` (batch 1, the block table of the
+    context's pages) per further token: the schedule-independent greedy
+    oracle.  ``want`` (the engine's history) must equal it; a first
+    difference is accepted only where the oracle's logits of its token
+    and the engine's lie within ``tol`` (a near-tie), and ends the
+    comparison there.  Returns the record; with ``want`` None, nothing is
+    compared and the record holds the oracle's ``history``."""
+    import torch
+    from repro_torch.cache.paged import PagedPools, PoolSpec
+    from repro_torch.data.sharegpt import synth_prompt_ids
+    from repro_torch.models.paged import paged_decode_step, prefill_kv
+    cfg, params = bundle["cfg"], bundle["params"]
+    device = params["embed"]["table"].device
+    n_tok = sum(t.prompt_tokens + t.response_tokens for t in conv.turns)
+    pools = PagedPools(PoolSpec.from_config(
+        cfg, -(-n_tok // block_size) + 1, 1, block_size), device=device)
+    hist, gaps = [], []
+    rec = {"conv": conv.conv_id, "tokens": n_tok, "generated": 0,
+           "first_difference": None}
+
+    def take(logits) -> bool:
+        """Append the oracle's token; False once the engine's differs."""
+        tok = int(logits.argmax())
+        pos = len(hist)
+        hist.append(tok)
+        rec["generated"] += 1
+        if want is None or pos >= len(want) or want[pos] == tok:
+            return True
+        gap = float(logits[tok] - logits[want[pos]])
+        rec["first_difference"] = {"position": pos, "oracle": tok,
+                                   "engine": want[pos], "logit_gap": gap}
+        if gap >= tol:
+            raise AssertionError(f"conversation {conv.conv_id}, position "
+                                 f"{pos}: the engine's token {want[pos]} is "
+                                 f"{gap} below the exact-shape oracle's "
+                                 f"{tok} (>= {tol})")
+        return False
+    with torch.no_grad():
+        for tix, turn in enumerate(conv.turns):
+            hist.extend(synth_prompt_ids(conv.conv_id, tix,
+                                         turn.prompt_tokens, cfg.vocab_size))
+            if want is not None and list(want[:len(hist)]) != hist:
+                raise AssertionError(f"conversation {conv.conv_id}, turn "
+                                     f"{tix}: the engine's prompt ids differ "
+                                     "from the replay client's")
+            toks = torch.tensor([hist], dtype=torch.long, device=device)
+            logits, k, v = prefill_kv(params, toks, cfg=cfg)
+            nblk = -(-len(hist) // block_size)
+            pools.write_tokens(list(range(nblk)), 0, k, v)
+            if not take(logits.float().cpu()):
+                return rec
+            for _ in range(turn.response_tokens - 1):
+                ctx = len(hist) - 1
+                bt = torch.tensor([list(range(ctx // block_size + 1))],
+                                  dtype=torch.int32, device=device)
+                _, logits, pools.gpu = paged_decode_step(
+                    params, pools.gpu, bt,
+                    torch.tensor([ctx], dtype=torch.int32, device=device),
+                    torch.tensor([hist[-1]], dtype=torch.int32,
+                                 device=device), cfg=cfg)
+                if not take(logits[0].cpu()):
+                    return rec
+    if want is None:
+        rec["history"] = hist
+    elif hist != list(want):
+        raise AssertionError(f"conversation {conv.conv_id}: the engine's "
+                             f"history ({len(want)} tokens) differs from "
+                             f"the oracle's ({len(hist)}) outside any "
+                             "generated position")
+    return rec
+
+
+def check_oracle(eng, bundle, convs, tol: float = NEAR_TIE) -> dict:
+    """``exact_shape_history`` of every conversation against the engine's
+    token history."""
+    rows = [exact_shape_history(bundle, c, eng._token_hist_by_conv[c.conv_id],
+                                tol=tol) for c in convs]
+    return {"conversations": len(rows),
+            "equal": sum(r["first_difference"] is None for r in rows),
+            "near_ties": [r["first_difference"] for r in rows
+                          if r["first_difference"] is not None],
+            "generated": sum(r["generated"] for r in rows),
             "tolerance": tol}
 
 
@@ -1897,10 +2352,11 @@ def moe_phase(device, out_dir: Path, cfg=None,
     convs = conversations(8, (256, 288, 320, 352), (96, 128, 160),
                           max_tokens=32)
     sizes = dict(gpu_blocks=160, cpu_blocks=1024, max_running=8)
+    expect = MOE_SWAPS if cfg.name == MOE_ARCH else None
     with swaps_follow_the_clock(), replays_held_to_eager() as held, \
             fullest_replays() as snaps:
         warm, warm_wall, _, warm_swaps = run_engine(bundle, convs, **sizes)
-    check_engine(warm, convs, warm_swaps)
+    check_engine(warm, convs, warm_swaps, expect_swaps=expect)
     if not held:
         raise AssertionError("no captured MoE decode step was replayed")
     kernels = _serving_kernels()
@@ -1908,7 +2364,7 @@ def moe_phase(device, out_dir: Path, cfg=None,
     with swaps_follow_the_clock() as hold:
         eng, wall, host, swaps = run_engine(bundle, convs, **sizes)
     launched = {n: fn.launches for n, fn in kernels.items()}
-    stats = check_engine(eng, convs, swaps)
+    stats = check_engine(eng, convs, swaps, expect_swaps=expect)
     if cuda and min(launched.values()) <= 0:
         raise AssertionError(f"a kernel of the MoE path never launched: "
                              f"{launched}")
@@ -1938,6 +2394,7 @@ def moe_phase(device, out_dir: Path, cfg=None,
     # state (each replay advances the rows; the engine is done with them)
     live = eng.runner._step_tensors(eng.pools.gpu)
     replay = {"bucket": list(bucket), "active_rows": snap["active"]}
+    graph = None
     if cuda and all(a.shape == b.shape for a, b in zip(live, snap["clones"])):
         for a, b in zip(live, snap["clones"]):
             a.copy_(b)
@@ -1953,18 +2410,30 @@ def moe_phase(device, out_dir: Path, cfg=None,
         replay["dense_bound_share"] = dense_ms / replay["ms"]
         if profile:
             replay["profile"] = replay_ops(graph.replay)
+        # a staged swap-in from a worker thread beside one such replay
+        for a, b in zip(live, snap["clones"]):
+            a.copy_(b)
+        replay["beside_swap_in"] = overlap_probe(graph.replay, device)
     out = {"arch": cfg.name, "wall_s": wall, "warm_wall_s": warm_wall,
            "init_s": init_s, "tokens_per_s": stats["tokens"] / wall,
-           "host_s_by_method": host, "clock_hold_wait_s": hold["wait_s"],
+           "host_s_by_method": host,
+           "earlier_staged_s": EARLIER_STAGED_S.get(cfg.name),
+           "clock_hold_wait_s": hold["wait_s"],
            "unheld_wall_s": free_wall,
            "unheld_tokens_per_s": free_tokens / free_wall,
            "unheld_host_s_by_method": free_host, "launches": launched,
            "replays_checked": held, "replay": replay, "memory": mem,
            "determinism": "warm-up and timed runs: equal token histories",
            "oracle": oracle, **stats}
-    del eng, warm, snaps, snap, live, bundle
+    del eng, warm, snaps, snap, live, bundle, graph
     if cuda:
+        # the engines' timed methods wrap bound methods of their own
+        # runner and pools (reference cycles): collect them, and the
+        # weights they hold, before the launcher's process needs the card
+        gc.collect()
         torch.cuda.empty_cache()
+        out["memory"]["before_launcher_gb"] = \
+            torch.cuda.memory_allocated() / 1e9
     run = run_launcher(["--real", "--arch", MOE_ARCH, "--device", kind,
                         "--conversations", "2", "--policy", "fastswitch"],
                        out_dir)
@@ -2121,6 +2590,10 @@ def main() -> int:
     ops_launches = run_ops_path(c2, flash[(1, 2048)]["qkv"], gla_in, outs)
     emit("ops", launches=ops_launches,
          outputs="bit-equal with the checked kernel outputs")
+
+    # 3c. the swap plane: one 64-block swap three ways at both served
+    # models' pool layouts, beside the host link's rate
+    emit("swap", nvidia_smi=smi[0], **swap_phase(dev))
     del outs, c2, copies, slab, gla_in, gla_out
     for f in flash.values():
         del f["qkv"], f["out"]
@@ -2136,21 +2609,27 @@ def main() -> int:
     sizes = dict(gpu_blocks=160, cpu_blocks=1024, max_running=8)
     # a first run pays one-time costs (library handles, allocator growth)
     # and holds every bucket's first replay against the eager step; the
-    # main path is the second, identical run
-    with replays_held_to_eager() as held:
+    # main path is the second, identical run.  Both hold swap tasks to the
+    # simulated clock, so their schedules, swap counts and tokens repeat
+    with swaps_follow_the_clock(), replays_held_to_eager() as held:
         cold, cold_wall, _, cold_swaps = run_engine(bundle, convs, **sizes)
-    cold_stats = check_engine(cold, convs, cold_swaps)
+    cold_stats = check_engine(cold, convs, cold_swaps,
+                              expect_swaps=ENGINE_SWAPS)
     if not held:
         raise AssertionError("no captured decode step was replayed")
-    del cold
     pa.paged_attention.launches = 0
     bc.block_gather_runs.launches = 0
     bc.block_scatter_runs.launches = 0
-    eng, wall, host, swaps = run_engine(bundle, convs, **sizes)
+    with swaps_follow_the_clock() as hold:
+        eng, wall, host, swaps = run_engine(bundle, convs, **sizes)
     launches = {"paged_attention": pa.paged_attention.launches,
                 "block_gather_runs": bc.block_gather_runs.launches,
                 "block_scatter_runs": bc.block_scatter_runs.launches}
-    stats = check_engine(eng, convs, swaps)
+    stats = check_engine(eng, convs, swaps, expect_swaps=ENGINE_SWAPS)
+    if eng._token_hist_by_conv != cold._token_hist_by_conv:
+        raise AssertionError("the warm-up and the timed engine runs gave "
+                             "other tokens")
+    del cold
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the main path never launched: "
                              f"{launches}")
@@ -2163,7 +2642,9 @@ def main() -> int:
     emit("engine", arch=ARCH, device=name, nvidia_smi=smi[0],
          wall_s=wall, cold_wall_s=cold_wall,
          tokens_per_s=stats["tokens"] / wall, host_s_by_method=host,
-         launches=launches, **stats,
+         earlier_staged_s=EARLIER_STAGED_S[ARCH],
+         clock_hold_wait_s=hold["wait_s"],
+         tokens_equal_warm_up=True, launches=launches, **stats,
          a10_modelled_p50_ttft_ms=summ["p50_ttft_ms"],
          a10_modelled_p99_tbt_ms=summ["p99_tbt_ms"],
          a10_modelled_throughput_tok_s=summ["throughput_tok_s"])
@@ -2175,6 +2656,10 @@ def main() -> int:
          near_ties=sum(r["near_ties"] for r in per_conv),
          max_gap=max(r["max_gap"] for r in per_conv), tolerance=NEAR_TIE,
          by_conv=per_conv)
+
+    # 5a. the exact-shape oracle: every conversation straight through
+    # prefill_kv + write_tokens + paged_decode_step
+    emit("oracle", **check_oracle(eng, bundle, convs))
     del eng
 
     # 5b. sampling: half the batch sampled; its first run holds each new
@@ -2257,6 +2742,10 @@ def main() -> int:
          timed={k: [t["device_ms"], t["library_device_ms"]]
                 for k, t in all_timed.items()},
          timed_columns=["kernel_device_ms", "library_device_ms"],
+         events={k: [t["events_ms"], t["library_events_ms"]]
+                 for k, t in all_timed.items()},
+         device_ms_by={k: [t["device_ms_by"], t["library_device_ms_by"]]
+                       for k, t in all_timed.items()},
          profiler_sessions_made_again=remeasured.retries)
     del flush, all_timed
 
@@ -2313,6 +2802,8 @@ def main() -> int:
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": times["library_ms"],
             "device_ms": times["device_ms"],
+            "device_ms_by": times["device_ms_by"],
+            "library_device_ms_by": times["library_device_ms_by"],
             "bound_share": b_ms / times["device_ms"],
             "library_device_ms": times["library_device_ms"]})
     rows[-1]["library"] = "none: no single PyTorch call computes the scan"
@@ -2322,7 +2813,9 @@ def main() -> int:
         "max_abs_err": attn["B8_pages64_g1"][1],
         "bound_ms": g1_bound, "bound_by": g1_by,
         **{k: a_g1_times[k] for k in ("ms", "plain_ms", "library_ms",
-                                      "device_ms", "library_device_ms")}}
+                                      "device_ms", "library_device_ms",
+                                      "device_ms_by",
+                                      "library_device_ms_by")}}
     # the run copies at olmoe-1b-7b's pool layout, byte-equal above
     for row, t in ((rows[1], moe_gather_t), (rows[2], moe_scatter_t)):
         m_bound, m_by = bound_ms(moe_c_bytes, 0)
@@ -2330,7 +2823,8 @@ def main() -> int:
             "max_abs_err": 0.0, "bound_ms": m_bound, "bound_by": m_by,
             "bound_share": m_bound / t["device_ms"],
             **{k: t[k] for k in ("ms", "plain_ms", "library_ms",
-                                 "device_ms", "library_device_ms")}}
+                                 "device_ms", "library_device_ms",
+                                 "device_ms_by", "library_device_ms_by")}}
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import random
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 
 class OutOfBlocksError(Exception):
@@ -72,6 +72,10 @@ class DynamicBlockGroupManager:
         # refcount is mapped into at least one request's block table beyond
         # its owner and must never reach the free list
         self._block_refs: Dict[int, int] = {}
+        # called with (start, length) for every range returned to the free
+        # list (the real-mode engine hands freed blocks' ordering against
+        # in-flight device work to its pools: ``PagedPools.note_released``)
+        self.on_release: Optional[Callable[[int, int], None]] = None
         # counters
         self.n_splits = 0
         self.n_merges = 0
@@ -115,6 +119,8 @@ class DynamicBlockGroupManager:
         for b in range(start, start + length):
             assert not self._block_refs.get(b), \
                 f"freeing block {b} with refcount {self._block_refs[b]}"
+        if self.on_release is not None:
+            self.on_release(start, length)
         # merge with successor
         end = start + length
         if end in self.free:

@@ -196,6 +196,9 @@ class ServingEngine:
                                         config.block_size)
             device = model_bundle["params"]["embed"]["table"].device
             self.pools = PagedPools(spec, with_data=True, device=device)
+            # a swap-in scattering into freed blocks orders behind the
+            # device work issued before they were freed, and only that
+            self.gpu_mgr.on_release = self.pools.note_released
             self.block_bytes = spec.block_bytes()
             from repro_torch.models.params import count_params_analytic
             model_params = count_params_analytic(cfg)
@@ -1101,6 +1104,11 @@ class ServingEngine:
         overlapping out-futures as explicit dependencies (awaited before
         the pool lock — see ``MultithreadingSwapManager.data_deps``)."""
         pools = self.pools
+        # a swap-out's gather must see the pool writes queued so far on
+        # this thread's stream (the decode step in flight), and not the
+        # steps launched after it, whenever its worker runs
+        written = (pools.compute_event()
+                   if pools is not None and direction == "out" else None)
         pos = 0
         for runs_c in split_runs(gpu_runs, self.config.swap_chunk_blocks):
             cnt = sum(n for _, n in runs_c)
@@ -1113,8 +1121,8 @@ class ServingEngine:
                     deps = self.swap.data_deps(cpu_c)
                     data_runs = trim_runs(runs_c, len(cpu_c))
                     if direction == "out":
-                        copy_fn = (lambda r=data_runs, c=cpu_c:
-                                   pools.copy_out_staged(r, c))
+                        copy_fn = (lambda r=data_runs, c=cpu_c, e=written:
+                                   pools.copy_out_staged(r, c, after=e))
                     else:
                         copy_fn = (lambda r=data_runs, c=cpu_c:
                                    pools.copy_in_staged(c, r))

@@ -107,6 +107,18 @@ def to_device(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
+def _runs_on(device, *arrays: np.ndarray) -> Tuple[torch.Tensor, ...]:
+    """Equal-length int32 run arrays as tensors on ``device``.  On CUDA
+    they cross as one pinned, non-blocking copy on the current stream, so
+    the host does not wait for that stream (a pageable copy would
+    synchronise it); the pinned buffer's allocator keeps it until the
+    copy is done."""
+    host = torch.from_numpy(np.stack(arrays).astype(np.int32, copy=False))
+    if torch.device(device).type != "cuda":
+        return tuple(host.to(device))
+    return tuple(host.pin_memory().to(device, non_blocking=True))
+
+
 def gather_swap_runs(pool, runs: Sequence[Tuple[int, int]]):
     """Run-coalesced staged swap-out gather: copy the pool blocks named by
     ``runs`` [(start, n_blocks)] into one zeroed contiguous staging slab,
@@ -121,10 +133,9 @@ def gather_swap_runs(pool, runs: Sequence[Tuple[int, int]]):
     L, K, nb, bs, H, D = pool.shape
     slab = torch.zeros((L * K, n_slab, bs, H, D), dtype=pool.dtype,
                        device=pool.device)
-    dev = pool.device
     _bc.block_gather_runs(pool.view(L * K, nb, bs, H, D), slab,
-                          to_device(src, dev), to_device(dst, dev),
-                          to_device(lens, dev), run_blocks=run_blocks)
+                          *_runs_on(pool.device, src, dst, lens),
+                          run_blocks=run_blocks)
     return slab, int(sum(n for _, n in runs))
 
 
@@ -140,11 +151,10 @@ def scatter_swap_runs(pool, slab, runs: Sequence[Tuple[int, int]]):
         raise ValueError(f"slab holds {slab.shape[1]} blocks, the runs' "
                          f"bucket is {n_slab}")
     L, K, nb, bs, H, D = pool.shape
-    dev = pool.device
     # gather offsets are the slab side here: slab[dst] -> pool[src]
     _bc.block_scatter_runs(slab, pool.view(L * K, nb, bs, H, D),
-                           to_device(dst, dev), to_device(src, dev),
-                           to_device(lens, dev), run_blocks=run_blocks)
+                           *_runs_on(pool.device, dst, src, lens),
+                           run_blocks=run_blocks)
     return pool
 
 

@@ -17,6 +17,10 @@ index write on the pool; rows that share a slot (freed rows, on the trash
 block) all write the last such row's K/V, so the pool's bytes do not
 depend on the order in which the write's threads land.
 
+The exact-shape ``paged_decode_step`` and ``prefill_kv`` run eagerly at
+the shapes they are given: the parity reference and the engine's greedy
+oracle, not the serving path.
+
 Sampling (temperature / top-k / top-p) is fused into the step as in the
 reference, with the reference's random streams (``models/prng.py``).  The
 reference keeps an all-greedy step argmax-only through a batch-level
@@ -36,7 +40,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import prng
 from repro_torch.models.transformer import (check_supported, ffn,
-                                            unstack_layers)
+                                            forward_seq, unstack_layers)
 
 
 def supports_paged(cfg: ModelConfig) -> bool:
@@ -98,6 +102,25 @@ def _decode_hidden(params, pool, block_tables, context_lens, tokens,
         x = x + ffn(lp, h, cfg)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return x[:, 0], pool
+
+
+def paged_decode_step(params, pool, block_tables, context_lens, tokens, *,
+                      cfg: ModelConfig):
+    """Exact-shape greedy decode step (reference
+    ``repro/models/paged.py:185``, body ``_decode_core`` at ``:111``): no
+    bucketing and no graph, so every call runs eagerly at the shapes it
+    is given.  pool: (L, 2, nb, bs, Hkv, D), written in place (each row's
+    new K/V at position ``context_lens``; the reference donates it);
+    block_tables: (B, n_pages) int32; context_lens: (B,) tokens already
+    cached; tokens: (B,) current input tokens.  Returns (next_tokens,
+    logits (B, V) fp32, pool).  With ``prefill_kv`` and
+    ``PagedPools.write_tokens``, the engine's schedule-independent greedy
+    oracle."""
+    x_last, pool = _decode_hidden(params, pool, block_tables, context_lens,
+                                  tokens, cfg)
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    logits = L.unembed(head, x_last)
+    return torch.argmax(logits, dim=-1).to(torch.int32), logits, pool
 
 
 def sample_tokens(logits, keys, ctx, sampling, *, sampled: bool = True):
@@ -177,6 +200,17 @@ def paged_decode_step_device(params, pool, block_tables, context_lens,
     them).  Returns (next_tokens, pool, context_lens, tokens)."""
     return _device_step_core(params, pool, block_tables, context_lens,
                              tokens, active, keys, sampling, cfg, sampled)
+
+
+def prefill_kv(params, tokens, *, cfg: ModelConfig):
+    """Full-context prefill returning per-layer K/V for pool insertion
+    (reference ``repro/models/paged.py:325``), through the plain
+    ``transformer.forward_seq``.  tokens: (1, T).  Returns (last_logits
+    (V,), k, v: (L, T, Hkv, D)).  Exact-shape: the engine's runner
+    prefills through the bucketed chunked forward instead; this is the
+    parity reference and the prefill of one-shot tools."""
+    logits, (k, v) = forward_seq(params, cfg, tokens)      # k: (L,1,T,H,D)
+    return logits[0, -1], k[:, 0], v[:, 0]
 
 
 def _prefill_chunk_core(params, tokens, k_carry, v_carry, prefix_len: int,

@@ -28,6 +28,7 @@ from test_torch_engine import NEAR_TIE, first_divergence_gap
 from test_torch_model import LOGIT_TOL, assert_close_bf16, \
     check_decode_step, check_forward_seq, smoke_models
 from test_torch_serve import _launch, swaps_follow_the_clock  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 ARCHS = ["llama3.2-3b", "mistral-nemo-12b", "llava-next-mistral-7b"]
 LLAVA = "llava-next-mistral-7b"

@@ -38,6 +38,7 @@ from repro_torch.kernels import launches
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from test_torch_gpu_graphs import churn_pools, churn_steps, mixed_churn
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 # the bound of tests/test_torch_model.py on bf16 K/V against the reference
 # (XLA keeps fused bf16 intermediates in fp32): per element and on the mean

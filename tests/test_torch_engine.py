@@ -34,6 +34,7 @@ from repro_torch.core import SamplingParams
 from repro_torch.data.priority import PriorityTrace
 from repro_torch.data.sharegpt import Conversation, Turn, sample_conversations
 from repro_torch.models import transformer as T
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 

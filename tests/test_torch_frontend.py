@@ -42,6 +42,7 @@ from repro_torch.data.sharegpt import synth_prompt_ids
 from repro_torch.frontend import admission, loadgen, router
 from repro_torch.models import transformer as T
 from test_torch_serve import swaps_follow_the_clock  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 PACKAGES = {

@@ -26,6 +26,7 @@ from repro_torch.kernels import block_copy as bc
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gla_scan as gla
 from repro_torch.kernels import ops, ref
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}

@@ -15,6 +15,7 @@ from repro.kernels.paged_attention import paged_attention as jax_paged_attention
 from repro_torch.kernels import block_copy as bc
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 # fp32: both sides take exact fp32 products and sum in another order
 # (online softmax over tiles vs one softmax), 1e-5 as tests/test_kernels.py;

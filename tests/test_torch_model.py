@@ -21,6 +21,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.params import count_params_analytic
 from repro_torch.models.paged import paged_decode_step_device
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 ARCH = "qwen2-1.5b"
 BS = 16

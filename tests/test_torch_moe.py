@@ -27,6 +27,7 @@ from repro.models import moe as jax_moe
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.models import moe
 from repro_torch.models.transformer import params_from_numpy
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 E, K, D, F = 64, 8, 256, 128
 

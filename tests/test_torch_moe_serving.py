@@ -60,6 +60,7 @@ from test_torch_engine import NEAR_TIE, STORMS, _storm, _storm_cfg
 from test_torch_model import BS, KV_TOL, LOGIT_TOL, assert_close_bf16, \
     check_forward_seq
 from test_torch_serve import _launch, swaps_follow_the_clock  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 ARCH = "olmoe-1b-7b"
 FACTORS = (4.0, 1.0)

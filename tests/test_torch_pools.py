@@ -10,6 +10,7 @@ from repro.cache.paged import PagedPools as JaxPagedPools
 from repro.cache.paged import PoolSpec as JaxPoolSpec
 from repro_torch.cache.paged import PagedPools, PoolSpec
 from repro_torch.kernels.block_copy import runs_to_indices
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 BS = 8
 SPEC = dict(n_layers=2, n_kv_heads=2, head_dim=8, block_size=BS,

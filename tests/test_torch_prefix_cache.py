@@ -25,6 +25,7 @@ from repro_torch.core import (EngineConfig, InvariantViolation,
 from repro_torch.data.priority import PriorityTrace
 from repro_torch.models import transformer as T
 from test_torch_serve import swaps_follow_the_clock  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")

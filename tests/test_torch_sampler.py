@@ -22,6 +22,7 @@ import torch
 from repro.models.paged import sample_tokens as jax_sample_tokens
 from repro_torch.models import prng
 from repro_torch.models.paged import sample_tokens
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 # Gumbel noise is -log(-log(u)) on both sides: XLA's float32 logs put the
 # reference's within about an ulp of the exact value, the port's float64

@@ -44,6 +44,7 @@ from repro_torch.models import transformer as T
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import chip_smoke  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 NEAR_TIE = 2e-2
 SAMPLING = (0.8, 0, 0.9)

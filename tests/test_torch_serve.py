@@ -35,6 +35,7 @@ from repro_torch.launch import serve
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import chip_smoke  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 WALL = re.compile(r'"callstack_wall_s": [0-9.e+-]+')
 
