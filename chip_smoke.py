@@ -130,6 +130,28 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                as a subprocess.  The phase runs in a process of its own,
                ``scripts/moe_probe.py`` (``--profile`` there adds the
                replay's kernels by device time).
+  5h. train  — qwen2-1.5b at full width trained through
+               ``models/steps.py`` (fp32 parameters, AdamW, eager; no
+               kernel is on this path): 8 ``train_step``s with remat on
+               over one batch of B 8 x T 128, every loss finite and the
+               last below the first; one state's loss and gradients with
+               remat on and off (equal losses, gradients within
+               ``REMAT_GRAD_RTOL``, byte equality reported); the config cut
+               to 2 layers on the card against the CPU, the same params
+               and a batch of B 2 x T 64 (the loss and every gradient
+               leaf within stated bounds); greedy decode of 8 prompts of
+               256 tokens through ``prefill``, ``caches_from_prefill`` (512
+               positions) and 32 ``serve_step``s, every token the dense
+               forward's argmax or a near-tie, and the same with an int8
+               cache (finite; its agreement reported); the step's median
+               ms, tokens/s, model FLOPs and their share of the bf16 peak,
+               CUDA-event ms of ``loss_and_grads``, ``adamw_update`` and
+               the CE product, one step under ``torch.profiler`` (device
+               busy ms, idle share, host waits for the card), peak memory
+               with remat on and off; then the
+               launcher, ``python -m repro_torch.launch.train --arch
+               qwen2-1.5b --steps 5 --batch 8 --seq 128``, as a subprocess.
+               In a process of its own, ``scripts/train_probe.py``.
   6. device_times — the device time of each phase-3 kernel and library
                call alone: their CUDA kernels under ``torch.profiler``, the
                wrapper's host time left out.  After the engine phases,
@@ -1406,7 +1428,7 @@ def check_history(bundle, hist, generated, tol: float = NEAR_TIE) -> dict:
     device = bundle["params"]["embed"]["table"].device
     toks = torch.tensor([hist], dtype=torch.long, device=device)
     with torch.no_grad():
-        logits, _ = T.forward_seq(bundle["params"], bundle["cfg"], toks)
+        logits, _, _ = T.forward_seq(bundle["params"], bundle["cfg"], toks)
     lg = logits[0, [i - 1 for i in generated]]            # predicts i
     want = torch.tensor([hist[i] for i in generated], device=device)
     top = lg.max(dim=-1).values
@@ -1525,8 +1547,8 @@ def first_divergence(bundle, a, b):
             device = bundle["params"]["embed"]["table"].device
             toks = torch.tensor([a[:i]], dtype=torch.long, device=device)
             with torch.no_grad():
-                logits, _ = T.forward_seq(bundle["params"], bundle["cfg"],
-                                          toks)
+                logits, _, _ = T.forward_seq(bundle["params"], bundle["cfg"],
+                                             toks)
             return i, float((logits[0, -1, x] - logits[0, -1, y]).abs())
     return None
 
@@ -1598,7 +1620,7 @@ def check_sampled_tokens(eng, bundle, conv, smp, seed: int = SEED,
     device = bundle["params"]["embed"]["table"].device
     toks = torch.tensor([hist], dtype=torch.long, device=device)
     with torch.no_grad():
-        logits, _ = T.forward_seq(bundle["params"], bundle["cfg"], toks)
+        logits, _, _ = T.forward_seq(bundle["params"], bundle["cfg"], toks)
     lg = logits[0, [i - 1 for i in generated]].float().cpu()
     smp_t = torch.tensor([list(smp)], dtype=torch.float32)
     equal, why = 0, []
@@ -2450,23 +2472,378 @@ def moe_phase(device, out_dir: Path, cfg=None,
     return out
 
 
-def moe_phase_alone(timeout: float = 900.0) -> dict:
-    """``moe_phase`` in a process of its own, ``scripts/moe_probe.py``
-    (which builds nothing new: the kernels' libraries are cached under
-    ``build/``), so that nothing the phase leaves in a process (41 GB of
-    allocations freed, dead runners' CUDA graphs, swap threads) precedes
-    phase 6's profiler sessions.  Returns the probe's ``moe`` line;
-    raises with its standard error where it exits non-zero."""
+def phase_alone(phase: str, timeout: float = 900.0) -> dict:
+    """The ``phase`` phase in a process of its own,
+    ``scripts/{phase}_probe.py`` (which builds nothing new: the kernels'
+    libraries are cached under ``build/``), so that nothing the phase
+    leaves in a process (tens of GB of allocations freed, dead runners'
+    CUDA graphs, swap threads) precedes phase 6's profiler sessions.
+    Returns the probe's ``{"phase": phase, ...}`` line without its
+    ``phase`` key; raises with its standard error where it exits
+    non-zero."""
     run = subprocess.run([sys.executable,
-                          str(ROOT / "scripts" / "moe_probe.py")],
+                          str(ROOT / "scripts" / f"{phase}_probe.py")],
                          cwd=ROOT, capture_output=True, text=True,
                          timeout=timeout)
     if run.returncode != 0:
-        raise AssertionError(f"the moe phase exited {run.returncode}: "
+        raise AssertionError(f"the {phase} phase exited {run.returncode}: "
                              f"{run.stderr[-4000:]}")
     out = json.loads(next(line for line in run.stdout.splitlines()
-                          if line.startswith('{"phase": "moe"')))
+                          if line.startswith(f'{{"phase": "{phase}"')))
     out.pop("phase")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5h: training and the contiguous-cache step functions (qwen2-1.5b)
+# ---------------------------------------------------------------------------
+
+# the card against the CPU, the same params and batch at 2 layers: bf16
+# products accumulate in other orders in cuBLAS and on the CPU, and each
+# rounds its output to bf16, so activations and cotangents differ by
+# ulps as the port's and the reference's do on the CPU (per gradient
+# leaf, relative L2 0.004-0.017 there, the reference against itself up
+# to 0.020; tests/test_torch_train.py holds 4e-2).  The loss is a mean of
+# fp32 log-probabilities (there within 2.6e-5 relative; held to 1e-3 over
+# the 1536-wide, 151936-way products here).
+TRAIN_LOSS_RTOL = 1e-3
+TRAIN_GRAD_RTOL = 4e-2
+# remat on against off on one device: the same operations recomputed, so
+# only a reduction order that depends on the memory layout could move a
+# gradient (fp32 re-association)
+REMAT_GRAD_RTOL = 1e-6
+
+
+def _rel_l2(got, want) -> float:
+    import torch
+    got, want = got.double(), want.double()
+    return float(torch.linalg.vector_norm(got - want)
+                 / torch.clamp(torch.linalg.vector_norm(want), min=1e-30))
+
+
+def _grad_errors(got, want) -> dict:
+    """Per-leaf relative L2 error of the gradient tree ``got`` (moved to
+    ``want``'s device) against ``want``, by path."""
+    from repro_torch.train.checkpoint import keyed_leaves
+    w = dict(keyed_leaves(want))
+    return {k: _rel_l2(g.to(w[k].device), w[k])
+            for k, g in keyed_leaves(got)}
+
+
+def _train_batch(cfg, B: int, T: int, device, seed: int = SEED) -> dict:
+    """(B, T + 1) uniform tokens from a seeded generator on the CPU,
+    moved to ``device``: tokens the first T, labels the last T."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    base = torch.randint(0, cfg.vocab_size, (B, T + 1), generator=gen)
+    return {"tokens": base[:, :-1].to(device),
+            "labels": base[:, 1:].to(device)}
+
+
+def train_flops(cfg, B: int, T: int) -> dict:
+    """A training step's model FLOPs (PaLM's count: 6 per matmul weight
+    and token, the head's product included, plus 12 * L * width * T per
+    token for the attention scores and values), and the CE product's
+    FLOPs as computed, over the positions padded to ``CE_CHUNK``."""
+    from repro_torch.models.steps import CE_CHUNK
+    d, hd, L = cfg.d_model, cfg.resolved_head_dim, cfg.n_layers
+    nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    per_layer = d * nq + 2 * d * nkv + nq * d + 3 * d * cfg.d_ff
+    matmul = L * per_layer + cfg.vocab_size * d
+    tokens = B * T
+    model = 6 * matmul * tokens + 12 * L * nq * T * tokens
+    padded = B * (-(-T // CE_CHUNK) * CE_CHUNK)
+    return {"model_flops": model,
+            "ce_flops_as_computed": 6 * padded * d * cfg.vocab_size}
+
+
+# host operations that wait for the card
+HOST_WAITS = ("aten::_local_scalar_dense", "aten::nonzero",
+              "cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy")
+
+
+def profile_step(fn, top: int = 8) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: its wall to a
+    synchronise, the device's busy ms (its kernels and copies merged into
+    intervals) and idle share, the count of device operations, the host
+    operations that wait for the card (``HOST_WAITS``; the synchronise
+    that ends the call and the profiler's own are among them), and the
+    device operations by total time.  The profiler slows the host, so the idle
+    share is an upper bound.  Where the session comes back without
+    device events (seen on this machine; cause not found) the reading is
+    ``not_measured``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = _device_events(prof)
+    if not dev:
+        return {"not_measured": "the profiler recorded no device event"}
+    busy = busy_seconds((e.time_range.start, e.time_range.end) for e in dev)
+    waits = {}
+    for e in prof.events():
+        if e.name in HOST_WAITS:
+            waits[e.name] = waits.get(e.name, 0) + 1
+    by_name = {}
+    for e in dev:
+        n_us = by_name.setdefault(e.name[:80], [0, 0.0])
+        n_us[0] += 1
+        n_us[1] += e.time_range.end - e.time_range.start
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy * 1e3,
+            "device_idle_share": 1.0 - busy / wall,
+            "device_ops": len(dev), "host_waits": waits,
+            "top_device_ops": [{"name": n, "count": c, "ms": us / 1e3}
+                               for n, (c, us) in ranked]}
+
+
+def contiguous_decode(params, cfg, prompts, cache_len: int, n_steps: int,
+                      kv_dtype=None):
+    """Greedy decode of ``prompts`` (B, P) through the contiguous-cache
+    step functions: bf16 caches are filled by ``prefill`` and
+    ``caches_from_prefill``; an int8 cache (``kv_dtype``) by one
+    ``serve_step`` per prompt token from ``init_caches``, since only
+    ``serve_step`` quantises.  Then ``n_steps`` ``serve_step``s.
+    Returns (histories (B, P + 1 + n_steps), every step's logits finite)."""
+    import torch
+    from repro_torch.models import steps as S
+    from repro_torch.models import transformer as T
+    B, P = prompts.shape
+    if kv_dtype is None:
+        last, raw = S.prefill(params, cfg, prompts)
+        caches = S.caches_from_prefill(cfg, raw, B, cache_len)
+    else:
+        caches = T.init_caches(cfg, B, cache_len, kv_dtype=kv_dtype,
+                               device=prompts.device)
+        for i in range(P):
+            _, last, caches = S.serve_step(params, caches, prompts[:, i], i,
+                                           cfg=cfg)
+    finite = bool(torch.isfinite(last).all())
+    tok = torch.argmax(last, dim=-1)
+    out = [tok]
+    for i in range(n_steps):
+        tok, logits, caches = S.serve_step(params, caches, tok, P + i,
+                                           cfg=cfg)
+        finite = finite and bool(torch.isfinite(logits).all())
+        out.append(tok)
+    return torch.cat([prompts, torch.stack(out, 1).to(prompts.dtype)],
+                     1), finite
+
+
+def train_phase(device, cfg=None, batch=(8, 128), steps: int = 8,
+                decode=(8, 256, 32, 512), cpu_check=(2, 64)) -> dict:
+    """qwen2-1.5b at full width (``cfg``: another config, for a rehearsal
+    on the CPU) through ``models/steps.py`` and ``train/optimizer.py``:
+
+      * overfit: ``steps`` ``train_step``s (remat on) on one fixed batch
+        of ``batch`` (B, T); every loss finite, the last below the first;
+      * remat: ``loss_and_grads`` with remat on and off from one state;
+        equal losses, every gradient leaf within ``REMAT_GRAD_RTOL``
+        (byte equality reported);
+      * the card against the CPU: the config at 2 layers, the same params
+        (drawn on the CPU) and a batch of ``cpu_check`` (B, T): the loss
+        within ``TRAIN_LOSS_RTOL`` and every gradient leaf within
+        ``TRAIN_GRAD_RTOL`` (relative L2);
+      * contiguous decode: ``decode`` = (B, prompt, steps, cache_len):
+        ``prefill`` -> ``caches_from_prefill`` -> ``serve_step``s, every
+        greedy token the dense forward's argmax or a near-tie
+        (``check_history``); the same with an int8 cache, its logits
+        finite and its agreement with the bf16 tokens reported;
+      * the launcher ``python -m repro_torch.launch.train --arch ARCH
+        --steps 5 --batch B --seq T`` as a subprocess (``--device cpu``
+        with a CPU ``device``: the reduced config), exit 0.
+
+    On CUDA also the step's median ms, tokens/s, model FLOPs and their
+    share of the bf16 peak, the ms in ``loss_and_grads`` and in
+    ``adamw_update`` (CUDA events), the CE product's ms (forward and
+    backward at the step's shape), one step under ``torch.profiler``
+    (``profile_step``) and the peak memory of a step with remat on and
+    off."""
+    import dataclasses
+    import os
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import steps as S
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import (adamw_update, tree_leaves,
+                                             tree_map)
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    cfg = cfg or get_config(ARCH)
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    out = {"arch": cfg.name, "batch": list(batch)}
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    params, opt = S.init_train_state(cfg, seed=SEED, device=dev)
+    out["params"] = sum(t.numel() for t in tree_leaves(params))
+    B, T_len = batch
+    data = _train_batch(cfg, B, T_len, dev)
+
+    # overfit one batch, remat on
+    losses, step_s = [], []
+    for _ in range(steps):
+        sync()
+        t0 = time.perf_counter()
+        params, opt, loss = S.train_step(params, opt, data, cfg=cfg)
+        losses.append(float(loss))
+        step_s.append(time.perf_counter() - t0)
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"a training loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall over {steps} steps on "
+                             f"one batch: {losses}")
+    out["overfit_losses"] = losses
+    if cuda:
+        out["memory"] = {"peak_remat_on_gb":
+                         torch.cuda.max_memory_allocated() / 1e9}
+
+    # remat on against off, from the same state
+    l1, g1 = S.loss_and_grads(params, cfg, data, remat=True)
+    l0, g0 = S.loss_and_grads(params, cfg, data, remat=False)
+    if float(l1) != float(l0):
+        raise AssertionError(f"remat changed the loss: {float(l1)} against "
+                             f"{float(l0)}")
+    errs = _grad_errors(g1, g0)
+    worst = max(errs, key=errs.get)
+    if errs[worst] > REMAT_GRAD_RTOL:
+        raise AssertionError(f"remat moved gradient {worst} by "
+                             f"{errs[worst]} (> {REMAT_GRAD_RTOL})")
+    out["remat"] = {"loss_equal": True, "max_grad_rel_l2": errs[worst],
+                    "tolerance": REMAT_GRAD_RTOL,
+                    "byte_equal": all(torch.equal(a, b) for a, b in zip(
+                        tree_leaves(g1), tree_leaves(g0)))}
+    del g0, g1
+
+    if cuda:
+        # a step with remat off: its peak; then the step's parts
+        torch.cuda.reset_peak_memory_stats()
+        params, opt, _ = S.train_step(params, opt, data, cfg=cfg,
+                                      remat=False)
+        out["memory"]["peak_remat_off_gb"] = \
+            torch.cuda.max_memory_allocated() / 1e9
+        parts = {"loss_and_grads": [], "adamw_update": []}
+        for _ in range(3):
+            marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            marks[0].record()
+            _, grads = S.loss_and_grads(params, cfg, data)
+            marks[1].record()
+            params, opt = adamw_update(grads, opt, params)
+            marks[2].record()
+            marks[2].synchronize()
+            del grads
+            parts["loss_and_grads"].append(marks[0].elapsed_time(marks[1]))
+            parts["adamw_update"].append(marks[1].elapsed_time(marks[2]))
+        hidden = torch.randn((B, T_len, cfg.d_model), device=dev,
+                             dtype=torch.bfloat16, requires_grad=True)
+        head = params["embed"]["table"].detach().requires_grad_(True)
+
+        def ce():
+            S.chunked_ce_loss(hidden, head, data["labels"]).backward()
+        ce_ms = time_ms(ce, iters=5, warmup=1)
+        del hidden, head
+
+        def step():
+            nonlocal params, opt
+            params, opt, _ = S.train_step(params, opt, data, cfg=cfg)
+        out["profile"] = profile_step(step)
+        step_ms = sorted(step_s[1:])[len(step_s[1:]) // 2] * 1e3
+        flops = train_flops(cfg, B, T_len)
+        out.update(
+            step_ms=step_ms, step_ms_all=[s * 1e3 for s in step_s],
+            tokens_per_s=B * T_len / (step_ms / 1e3), **flops,
+            model_flops_share=flops["model_flops"] / (step_ms / 1e3)
+            / BF16_FLOPS_S,
+            loss_and_grads_ms=sorted(parts["loss_and_grads"])[1],
+            adamw_update_ms=sorted(parts["adamw_update"])[1],
+            ce_fwd_bwd_ms=ce_ms)
+
+    # contiguous decode, bf16 and int8 caches, on the trained params
+    nb, plen, n_steps, cache_len = decode
+    gen = torch.Generator().manual_seed(SEED + 1)
+    prompts = torch.randint(1, cfg.vocab_size, (nb, plen),
+                            generator=gen).to(dev)
+    hist, finite = contiguous_decode(params, cfg, prompts, cache_len,
+                                     n_steps)
+    if not finite:
+        raise AssertionError("the bf16 cache's decode gave logits that are "
+                             "not finite")
+    bundle = {"params": params, "cfg": cfg}
+    gen_pos = list(range(plen, plen + n_steps + 1))
+    rows = [check_history(bundle, h.tolist(), gen_pos) for h in hist]
+    hist8, finite8 = contiguous_decode(params, cfg, prompts, cache_len,
+                                       n_steps, kv_dtype=torch.int8)
+    if not finite8:
+        raise AssertionError("the int8 cache's decode gave logits that are "
+                             "not finite")
+    same = (hist8[:, plen:] == hist[:, plen:])
+    out["decode"] = {
+        "rows": nb, "prompt": plen, "steps": n_steps,
+        "cache_len": cache_len,
+        "generated": sum(r["generated"] for r in rows),
+        "equal": sum(r["equal"] for r in rows),
+        "near_ties": sum(r["near_ties"] for r in rows),
+        "max_gap": max(r["max_gap"] for r in rows), "tolerance": NEAR_TIE,
+        "int8": {"finite": True,
+                 "tokens_equal_bf16": int(same.sum()),
+                 "rows_equal_bf16": int(same.all(1).sum()),
+                 "first_diff_by_row": [
+                     int(r.nonzero()[0, 0]) if r.any() else None
+                     for r in ~same]}}
+    del params, opt, bundle, data
+
+    # the card against the CPU, 2 layers at the config's width
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    cpu_params = T.init_params(cfg2, seed=SEED, device="cpu")
+    cb, ct = cpu_check
+    cpu_data = _train_batch(cfg2, cb, ct, "cpu", seed=SEED + 2)
+    cl, cg = S.loss_and_grads(cpu_params, cfg2, cpu_data)
+    dev_params = tree_map(lambda t: t.to(dev), cpu_params)
+    dl, dg = S.loss_and_grads(dev_params, cfg2,
+                              {k: v.to(dev) for k, v in cpu_data.items()})
+    loss_rel = abs(float(dl) - float(cl)) / abs(float(cl))
+    errs = _grad_errors(dg, cg)
+    worst = max(errs, key=errs.get)
+    if loss_rel > TRAIN_LOSS_RTOL or errs[worst] > TRAIN_GRAD_RTOL:
+        raise AssertionError(
+            f"{dev.type} against the CPU: loss {float(dl)} / {float(cl)} "
+            f"(relative {loss_rel}, bound {TRAIN_LOSS_RTOL}); gradient "
+            f"{worst} relative L2 {errs[worst]} (bound {TRAIN_GRAD_RTOL})")
+    out["device_vs_cpu"] = {
+        "layers": 2, "batch": [cb, ct], "loss": float(dl),
+        "cpu_loss": float(cl), "loss_rel": loss_rel,
+        "max_grad_rel_l2": errs[worst], "worst_leaf": worst,
+        "grad_rel_l2": errs,
+        "tolerance": {"loss_rel": TRAIN_LOSS_RTOL,
+                      "grad_rel_l2": TRAIN_GRAD_RTOL}}
+    del cpu_params, dev_params, cg, dg
+    if cuda:
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the launcher, as a subprocess
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           cfg.name.removesuffix("-smoke"), "--steps", "5", "--batch",
+           str(B), "--seq", str(T_len), "--device", dev.type]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    if run.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd[1:])} exited "
+                             f"{run.returncode}: {run.stderr[-2000:]}")
+    lines = run.stdout.splitlines()
+    if not any(ln.startswith("step     4 loss") for ln in lines):
+        raise AssertionError(f"the launcher printed no last step: {lines}")
+    out["launcher"] = {"argv": cmd[2:], "wall_s": time.perf_counter() - t0,
+                       "stdout": lines}
     return out
 
 
@@ -2732,8 +3109,14 @@ def main() -> int:
     # 5g. MoE serving: olmoe-1b-7b at full width, then its launcher, in a
     # process of its own
     torch.cuda.empty_cache()
-    mo = moe_phase_alone()
+    mo = phase_alone("moe")
     emit("moe", **mo)
+
+    # 5h. training and the contiguous-cache step functions, qwen2-1.5b at
+    # full width, in a process of its own
+    torch.cuda.empty_cache()
+    # (the probe's line names the card and its power limit)
+    emit("train", **phase_alone("train"))
 
     # 6. device times of phase 3's calls, after the timed engine runs
     for t in all_timed.values():

@@ -209,7 +209,7 @@ def prefill_kv(params, tokens, *, cfg: ModelConfig):
     (V,), k, v: (L, T, Hkv, D)).  Exact-shape: the engine's runner
     prefills through the bucketed chunked forward instead; this is the
     parity reference and the prefill of one-shot tools."""
-    logits, (k, v) = forward_seq(params, cfg, tokens)      # k: (L,1,T,H,D)
+    logits, (k, v), _ = forward_seq(params, cfg, tokens)   # k: (L,1,T,H,D)
     return logits[0, -1], k[:, 0], v[:, 0]
 
 

@@ -1,7 +1,8 @@
 """Parameters and the plain sequence forward of a uniform decoder.
 
-Counterpart of ``repro/models/transformer.py``, for the uniform layer
-pattern with GQA attention and a dense or MoE FFN (qwen2-1.5b,
+Counterpart of ``repro/models/transformer.py`` (``init_params``,
+``forward_seq``, ``KVCaches``, ``init_caches``, ``decode_step``), for the
+uniform layer pattern with GQA attention and a dense or MoE FFN (qwen2-1.5b,
 llama3.2-3b, mistral-nemo-12b, olmoe-1b-7b, and llava-next-mistral-7b's
 language model behind its vision stub).  Parameters keep the reference's
 STACKED layout — every per-layer leaf carries a leading ``n_layers``
@@ -18,11 +19,11 @@ reference's parameters leaf by leaf:
 """
 from __future__ import annotations
 
-import math
-from typing import Any, Dict, List
+from typing import Any, Dict, List, NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -155,22 +156,35 @@ def count_params(cfg: ModelConfig) -> int:
 
 def ffn(lp, h, cfg: ModelConfig):
     """The layer's FFN on h (B, T, d): the MoE (its aux loss dropped) or
-    the dense SwiGLU."""
+    the dense SwiGLU.  The serving path's; training takes the aux loss
+    through ``_uniform_layer_seq``."""
     if cfg.moe is not None:
         return moe.moe_forward(lp["ffn"], h, cfg)[0]
     return L.swiglu(lp["ffn"], h)
 
 
-def forward_seq(params, cfg: ModelConfig, tokens, extra_embeds=None):
-    """Plain full-sequence causal forward, no pages: tokens (B, T_text)
-    -> (logits (B, T, V) fp32, (k, v) each (L, B, T, Hkv, D)).  The
-    reference's ``forward_seq`` for the uniform pattern; it also serves
-    as the plain end-to-end yardstick of the paged engine.  Given a
-    vision frontend, ``extra_embeds`` (B, T_img, d_embed) are projected
-    by ``mm_proj`` and prepended to the text, T = T_img + T_text, as the
-    reference's ``_embed_inputs``.  With a MoE FFN a token's output
-    depends on the other tokens of the call through capacity."""
-    check_supported(cfg)
+# ---------------------------------------------------------------------------
+# Sequence mode (train / prefill)
+# ---------------------------------------------------------------------------
+
+def _uniform_layer_seq(lp, x, cfg: ModelConfig, positions, use_moe: bool):
+    """One layer in sequence mode; returns (x, (k, v), aux)."""
+    h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    a, cache = attn.gqa_forward(lp["attn"], h, cfg, positions)
+    x = x + a
+    h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+    if use_moe:
+        f, aux = moe.moe_forward(lp["ffn"], h, cfg)
+    else:
+        f, aux = L.swiglu(lp["ffn"], h), torch.zeros(
+            (), dtype=torch.float32, device=x.device)
+    return x + f, cache, aux
+
+
+def _embed_inputs(params, cfg: ModelConfig, tokens, extra_embeds):
+    """tokens: (B, T_text); extra_embeds: (B, T_img, d_embed) or None.
+    VLM: image embeddings are projected by ``mm_proj`` and prepended to
+    the text."""
     x = L.embed(params["embed"], tokens)
     if extra_embeds is not None and "mm_proj" in params:
         img = (extra_embeds.to(L.COMPUTE_DTYPE)
@@ -178,21 +192,106 @@ def forward_seq(params, cfg: ModelConfig, tokens, extra_embeds=None):
         x = torch.cat([img, x], dim=1)
     B, T, _ = x.shape
     positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
-    scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
-    mask = (torch.arange(T, device=x.device)[None, :]
-            <= torch.arange(T, device=x.device)[:, None])[None, None]
+    return x, positions
+
+
+def forward_seq(params, cfg: ModelConfig, tokens, extra_embeds=None,
+                remat: bool = False, encoder_frames=None,
+                last_only: bool = False, return_hidden: bool = False):
+    """Full-sequence causal forward, no pages: tokens (B, T_text) ->
+    (logits (B, T, V) fp32, (k, v) each (L, B, T, Hkv, D), aux), aux the
+    MoE load-balance loss summed over layers (0 for a dense FFN).  The
+    reference's ``forward_seq`` for the uniform pattern; it is also the
+    plain end-to-end yardstick of the paged engine.
+
+    ``remat`` recomputes each layer in the backward pass
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of
+    its scan body); ``last_only`` unembeds only the last position;
+    ``return_hidden`` returns the final-normed hidden states (B, T, d) in
+    place of the logits.  Given a vision frontend, ``extra_embeds``
+    (B, T_img, d_embed) are prepended to the text, T = T_img + T_text.
+    ``encoder_frames`` is taken for the reference's signature and unused:
+    no encoder-decoder config passes ``check_supported``.  With a MoE FFN
+    a token's output depends on the other tokens of the call through
+    capacity."""
+    check_supported(cfg)
+    x, positions = _embed_inputs(params, cfg, tokens, extra_embeds)
+    use_moe = cfg.moe is not None
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     ks, vs = [], []
     for lp in unstack_layers(params["layers"]):
-        h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        q, k, v = attn._project_qkv(lp["attn"], h, cfg)
-        q = L.apply_rope(q, positions, cfg.rope_theta)
-        k = L.apply_rope(k, positions, cfg.rope_theta)
-        a = attn._sdpa(q, k, v, mask, scale)
-        x = x + a.reshape(B, T, -1) @ lp["attn"]["wo"].to(x.dtype)
-        h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-        x = x + ffn(lp, h, cfg)
+        if remat:
+            x, (k, v), aux = checkpoint(_uniform_layer_seq, lp, x, cfg,
+                                        positions, use_moe,
+                                        use_reentrant=False)
+        else:
+            x, (k, v), aux = _uniform_layer_seq(lp, x, cfg, positions,
+                                                use_moe)
+        aux_total = aux_total + aux
         ks.append(k)
         vs.append(v)
+    caches = (torch.stack(ks), torch.stack(vs))
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if return_hidden:
+        return x, caches, aux_total
+    if last_only:
+        x = x[:, -1:]
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    return L.unembed(head, x), caches, aux_total
+
+
+# ---------------------------------------------------------------------------
+# Contiguous decode caches and the decode step
+# ---------------------------------------------------------------------------
+
+class KVCaches(NamedTuple):
+    k: torch.Tensor            # (L, B, S, Hkv, D)
+    v: torch.Tensor
+
+
+def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
+                kv_dtype=None, device="cuda") -> KVCaches:
+    """Zero decode caches; ``kv_dtype`` overrides the bf16 KV storage
+    dtype (``torch.int8`` for the quantised cache)."""
+    check_supported(cfg)
+    dt = kv_dtype if kv_dtype is not None else L.COMPUTE_DTYPE
+    shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    return KVCaches(k=torch.zeros(shape, dtype=dt, device=device),
+                    v=torch.zeros(shape, dtype=dt, device=device))
+
+
+def _uniform_layer_decode(lp, x, cfg: ModelConfig, cache, pos,
+                          use_moe: bool):
+    """One layer of the decode step: x (B, 1, d) against the layer's
+    cache (k, v); returns (x, (k, v)) with new caches."""
+    h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    ck, cv = cache
+    a, ck, cv = attn.gqa_decode(lp["attn"], h, cfg, ck, cv, pos)
+    x = x + a
+    h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+    if use_moe:
+        f, _ = moe.moe_forward(lp["ffn"], h, cfg)
+    else:
+        f = L.swiglu(lp["ffn"], h)
+    return x + f, (ck, cv)
+
+
+def decode_step(params, cfg: ModelConfig, caches: KVCaches, token, pos):
+    """One decode step against contiguous caches.  token: (B,) int; pos:
+    an int or 0-d tensor, the tokens already cached.  Returns (logits
+    (B, V) fp32, new ``KVCaches``); ``caches`` is left unchanged."""
+    check_supported(cfg)
+    x = L.embed(params["embed"], token[:, None])           # (B, 1, d)
+    use_moe = cfg.moe is not None
+    ks, vs = [], []
+    for lp, ck, cv in zip(unstack_layers(params["layers"]), caches.k,
+                          caches.v):
+        x, (ck, cv) = _uniform_layer_decode(lp, x, cfg, (ck, cv), pos,
+                                            use_moe)
+        ks.append(ck)
+        vs.append(cv)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return L.unembed(head, x), (torch.stack(ks), torch.stack(vs))
+    return L.unembed(head, x[:, 0]), KVCaches(torch.stack(ks),
+                                               torch.stack(vs))

@@ -43,7 +43,7 @@ def test_frontend_phase_catches_a_wrong_streamed_token(served):
     import torch
     from repro_torch.models import transformer as T
     toks = torch.tensor([prompt])
-    logits, _ = T.forward_seq(bundle["params"], bundle["cfg"], toks)
+    logits, _, _ = T.forward_seq(bundle["params"], bundle["cfg"], toks)
     worst = int(logits[0, -1].argmin())
     with pytest.raises(AssertionError, match="below the dense maximum"):
         chip_smoke.stream_checks(bundle, [[(prompt, [worst])]])

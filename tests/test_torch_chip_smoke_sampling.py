@@ -62,8 +62,8 @@ def test_sampling_phase_catches_a_wrong_sampled_token(served,
     hist = eng._token_hist_by_conv[1]
     i = conv.turns[0].prompt_tokens + 5
     with th.no_grad():
-        logits, _ = T.forward_seq(bundle["params"], bundle["cfg"],
-                                  th.tensor([hist[:i]]))
+        logits, _, _ = T.forward_seq(bundle["params"], bundle["cfg"],
+                                     th.tensor([hist[:i]]))
     saved = hist[i]
     hist[i] = int(logits[0, -1].argmin())
     try:

@@ -84,7 +84,7 @@ def test_llava_forward_seq_with_image_embeds_matches_reference(llava):
                                cfg.frontend.d_embed)).astype(np.float32)
     jlogits, (jk, _), _ = jax_T.forward_seq(jparams, cfg, jnp.asarray(toks),
                                             extra_embeds=jnp.asarray(img))
-    logits, (k, _) = T.forward_seq(tparams, tcfg, torch.from_numpy(toks),
+    logits, (k, _), _ = T.forward_seq(tparams, tcfg, torch.from_numpy(toks),
                                    extra_embeds=torch.from_numpy(img))
     assert logits.shape == (2, 24 + cfg.frontend.n_tokens, cfg.vocab_size)
     assert_close_bf16(logits.numpy(), jlogits, LOGIT_TOL)

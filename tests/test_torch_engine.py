@@ -145,7 +145,7 @@ def first_divergence_gap(params, cfg, hist_a, hist_b):
     for i in range(n):
         if hist_a[i] != hist_b[i]:
             toks = torch.tensor([hist_a[:i]], dtype=torch.long)
-            logits, _ = T.forward_seq(params, cfg, toks)
+            logits, _, _ = T.forward_seq(params, cfg, toks)
             top2 = torch.topk(logits[0, -1], 2).values
             return i, float(top2[0] - top2[1])
     assert len(hist_a) == len(hist_b)

@@ -133,7 +133,7 @@ def check_forward_seq(model):
     cfg, jparams, tcfg, tparams = model
     toks = np.random.default_rng(1).integers(1, cfg.vocab_size, (2, 24))
     jlogits, (jk, _), _ = jax_T.forward_seq(jparams, cfg, jnp.asarray(toks))
-    logits, (k, _) = T.forward_seq(tparams, tcfg, _t(toks))
+    logits, (k, _), _ = T.forward_seq(tparams, tcfg, _t(toks))
     assert_close_bf16(logits.numpy(), jlogits, LOGIT_TOL)
     assert_close_bf16(k.float().numpy(), jk, KV_TOL)
 

@@ -75,8 +75,8 @@ def explain_divergence(bundle, hist_a, hist_b, *, rid, seed, sampling,
         return "equal" if len(hist_a) == len(hist_b) else ""
     i = diff[0]
     with torch.no_grad():
-        logits, _ = T.forward_seq(bundle["params"], bundle["cfg"],
-                                  torch.tensor([hist_a[:i]]))
+        logits, _, _ = T.forward_seq(bundle["params"], bundle["cfg"],
+                                     torch.tensor([hist_a[:i]]))
     first = i in first_tokens
     key = chip_smoke.row_key(seed, rid, salt=1 if first else 0)
     return chip_smoke.sampled_apart(logits[0, -1], key,
