@@ -27,10 +27,10 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                B 8 x T 512 (flash, every element within a bf16 tolerance);
                zamba2-7b's SSD scan, 112 heads x T 4096 (y and S within
                stated bounds).
-  3b. ops    — the kernels this slice adds, driven once each through the
-               public API ``repro_torch.kernels.ops`` at those widths, with
-               their launch counts set to 0 just before and read just
-               after; no serving-path module calls them.
+  3b. ops    — the kernels with no serving-path caller, driven once each
+               through the public API ``repro_torch.kernels.ops`` at those
+               widths, with their launch counts set to 0 just before and
+               read just after (the scan's model path is phase 5i).
   3c. swap   — one 64-block swap (phase 3's chunk, three runs) out of a
                ``PagedPools`` and back in, at qwen2-1.5b's pool layout (448
                KiB blocks) and olmoe-1b-7b's (2 MiB), three ways: per block
@@ -152,6 +152,38 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                launcher, ``python -m repro_torch.launch.train --arch
                qwen2-1.5b --steps 5 --batch 8 --seq 128``, as a subprocess.
                In a process of its own, ``scripts/train_probe.py``.
+  5i. ssm    — the SSM and hybrid families, in a process of its own
+               (``scripts/ssm_probe.py``).  zamba2-7b at full width (81
+               layers: 13 periods of 5 Mamba2 layers and one shared
+               attention block, 3 remainder Mamba2 layers; d_model 3584,
+               112 SSD heads, N = P = chunk = 64; 5.7 B parameters,
+               random weights from a seed, bf16 serving copy only): a
+               prefill of 8 prompts of 256 through ``steps.prefill``,
+               the SSD scan kernel's launch count set to 0 just before
+               and read just after (68: once per Mamba2 layer); the same
+               prefill with the kernel's plain version (last logits
+               within twice the distance of two plain prefills whose scans
+               differ in summation order, ``SSM_SPREAD_FACTOR``; the first
+               layer's scan within phase 3's bounds);
+               ``caches_from_prefill`` (512 positions) and 32 greedy
+               ``serve_step``s, every token the dense forward's argmax or
+               a near-tie (within twice two plain dense forwards'
+               distance); prefill and decode-step ms,
+               a decode step under ``torch.profiler`` (its launches), its
+               weight-traffic bound, the scan's ms at the prefill's shape,
+               peak memory.  Its train step cut to one period (6 layers)
+               at full width, B 2 x T 64, against the CPU (loss and every
+               gradient leaf within stated bounds; no scan launched: no
+               kernel has a backward).  rwkv6-1.6b at full width through
+               ``train_phase`` (8 steps with remat on over one batch of B
+               8 x T 128, remat on against off, the card against the CPU
+               at 2 layers, greedy decode of 8 prompts of 256 over 32
+               steps, step ms, tokens/s, FLOP share, peak memory, then
+               ``launch.train --arch rwkv6-1.6b --steps 5 --batch 8 --seq
+               128``).  Then the launchers' refusals of zamba2-7b:
+               ``launch.train --device cuda`` (its 92 GB fp32 training
+               state exceeds the card) and ``launch.serve --real`` (no
+               paged path, the reference's message), both non-zero.
   6. device_times — the device time of each phase-3 kernel and library
                call alone: their CUDA kernels under ``torch.profiler``, the
                wrapper's host time left out.  After the engine phases,
@@ -175,7 +207,8 @@ Phases, each printing one JSON line (``{"phase": ...}``):
 
 Then a ``kernels`` line (per kernel: launches on its path, error, times
 around the call and on the device, bound, and the bound's share of the
-device time) and, as the last line,
+device time; the scan's launches are those of phase 5i's zamba2 prefill,
+with its times there beside phase 3's) and, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
 then not 0 and the last line is not printed.  Imports nothing of JAX or
 of the JAX package.
@@ -2508,6 +2541,19 @@ def phase_alone(phase: str, timeout: float = 900.0) -> dict:
 # the 1536-wide, 151936-way products here).
 TRAIN_LOSS_RTOL = 1e-3
 TRAIN_GRAD_RTOL = 4e-2
+# Some configurations are far more sensitive to rounding than others:
+# at random weights and full width, rwkv6-1.6b's time-mix gradients
+# (u_bonus, w_r, w_k, mu_base) move 10-18 % (relative L2) when the
+# embedding table is scaled by 1 + 1e-4 N(0, 1), a fortieth of a bf16
+# ulp, where zamba2's one period moves at most 4 %; the card and the CPU
+# round bf16 products apart by whole ulps, so such leaves lie 9-19 %
+# apart there (H100 80GB HBM3, 700.00 W; the ssm phase's
+# ``conditioning`` and ``grad_rel_l2``).  A leaf is held to its fixed
+# bound, or to COND_FACTOR times its own change under that perturbation
+# of the CPU run (``conditioning``), the larger: the check follows the
+# function's conditioning, measured in the same run, not the card's.
+COND_EPS = 1e-4
+COND_FACTOR = 2.0
 # remat on against off on one device: the same operations recomputed, so
 # only a reduction order that depends on the memory layout could move a
 # gradient (fp32 re-association)
@@ -2530,6 +2576,70 @@ def _grad_errors(got, want) -> dict:
             for k, g in keyed_leaves(got)}
 
 
+def conditioning(params, cfg, data, grads) -> dict:
+    """Per gradient leaf, its relative L2 change when the embedding table
+    of ``params`` is scaled by 1 + ``COND_EPS`` N(0, 1) (seeded): how far
+    rounding far below a bf16 ulp moves it.  ``grads``: the unperturbed
+    gradients of ``loss_and_grads(params, cfg, data)``."""
+    import torch
+    from repro_torch.models import steps as S
+    table = params["embed"]["table"]
+    noise = torch.randn(table.shape, generator=torch.Generator(
+        table.device).manual_seed(SEED)).to(table.device)
+    moved = dict(params, embed={"table": table * (1 + COND_EPS * noise)})
+    return _grad_errors(S.loss_and_grads(moved, cfg, data)[1], grads)
+
+
+def device_vs_cpu(cfg, device, batch, grad_rtol: float) -> dict:
+    """``loss_and_grads`` (remat on) of ``cfg`` on ``device`` against the
+    CPU, the same params (drawn on the CPU) and a batch of ``batch`` (B,
+    T): the loss within ``TRAIN_LOSS_RTOL`` (relative) and each gradient
+    leaf within ``grad_rtol`` or ``COND_FACTOR`` times its
+    ``conditioning``, the larger (relative L2)."""
+    import torch
+    from repro_torch.models import steps as S
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import tree_map
+    dev = torch.device(device)
+    cpu_params = T.init_params(cfg, seed=SEED, device="cpu")
+    B, T_len = batch
+    data = _train_batch(cfg, B, T_len, "cpu", seed=SEED + 2)
+    cl, cg = S.loss_and_grads(cpu_params, cfg, data)
+    cond = conditioning(cpu_params, cfg, data, cg)
+    dev_params = tree_map(lambda t: t.to(dev), cpu_params)
+    dl, dg = S.loss_and_grads(dev_params, cfg,
+                              {k: v.to(dev) for k, v in data.items()})
+    loss_rel = abs(float(dl) - float(cl)) / abs(float(cl))
+    errs = _grad_errors(dg, cg)
+    bounds = {k: max(grad_rtol, COND_FACTOR * cond[k]) for k in errs}
+    worst = max(errs, key=lambda k: errs[k] / bounds[k])
+    if loss_rel > TRAIN_LOSS_RTOL or errs[worst] > bounds[worst]:
+        raise AssertionError(
+            f"{dev.type} against the CPU, {cfg.name} at {cfg.n_layers} "
+            f"layers: loss {float(dl)} / {float(cl)} (relative {loss_rel}, "
+            f"bound {TRAIN_LOSS_RTOL}); gradient {worst} relative L2 "
+            f"{errs[worst]} (bound {bounds[worst]}: {grad_rtol}, or "
+            f"{COND_FACTOR} x its change {cond[worst]} under the "
+            "embedding's perturbation)")
+    out = {"layers": cfg.n_layers, "params": T.count_params(cfg),
+           "batch": [B, T_len], "loss": float(dl), "cpu_loss": float(cl),
+           "loss_rel": loss_rel, "max_grad_rel_l2": max(errs.values()),
+           "worst_leaf": max(errs, key=errs.get),
+           "worst_leaf_by_bound": worst, "grad_rel_l2": errs,
+           "conditioning": cond,
+           "raised_bounds": {k: b for k, b in bounds.items()
+                             if b > grad_rtol},
+           "tolerance": {"loss_rel": TRAIN_LOSS_RTOL,
+                         "grad_rel_l2": grad_rtol,
+                         "conditioning_eps": COND_EPS,
+                         "conditioning_factor": COND_FACTOR}}
+    del cpu_params, dev_params, cg, dg
+    if dev.type == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def _train_batch(cfg, B: int, T: int, device, seed: int = SEED) -> dict:
     """(B, T + 1) uniform tokens from a seeded generator on the CPU,
     moved to ``device``: tokens the first T, labels the last T."""
@@ -2540,21 +2650,48 @@ def _train_batch(cfg, B: int, T: int, device, seed: int = SEED) -> dict:
             "labels": base[:, 1:].to(device)}
 
 
-def train_flops(cfg, B: int, T: int) -> dict:
-    """A training step's model FLOPs (PaLM's count: 6 per matmul weight
-    and token, the head's product included, plus 12 * L * width * T per
-    token for the attention scores and values), and the CE product's
-    FLOPs as computed, over the positions padded to ``CE_CHUNK``."""
-    from repro_torch.models.steps import CE_CHUNK
+def matmul_weights(cfg) -> tuple:
+    """(weights one token is multiplied by in a forward, the head
+    included, each as often as it is applied; layers with attention):
+    zamba2's shared block counts once per period; rwkv's LoRA factors
+    count, its decays and mixes do not."""
+    from repro_torch.models import mamba2
+    from repro_torch.models import transformer as T
     d, hd, L = cfg.d_model, cfg.resolved_head_dim, cfg.n_layers
     nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
-    per_layer = d * nq + 2 * d * nkv + nq * d + 3 * d * cfg.d_ff
-    matmul = L * per_layer + cfg.vocab_size * d
+    attn = d * nq + 2 * d * nkv + nq * d
+    pat = T._pattern(cfg)
+    if pat == "zamba2":
+        s, d_inner, H, _ = mamba2._dims(cfg)
+        R, P, rem = T._zamba2_shape(cfg)
+        proj = d * (2 * d_inner + 2 * s.state_dim + H) + d_inner * d
+        layers, n_attn = (P * R + rem) * proj + P * (attn + 3 * d
+                                                     * cfg.d_ff), P
+    elif pat == "rwkv":
+        r = cfg.rwkv.decay_lora_rank
+        layers = L * (6 * d * d + 12 * r * d + 2 * d * cfg.d_ff)
+        n_attn = 0
+    else:
+        layers, n_attn = L * (attn + 3 * d * cfg.d_ff), L
+    return layers + cfg.vocab_size * d, n_attn
+
+
+def train_flops(cfg, B: int, T: int) -> dict:
+    """A training step's model FLOPs (PaLM's count: 6 per matmul weight
+    and token, ``matmul_weights``, plus 12 * width * T per token for the
+    attention scores and values of each layer with attention; an SSM
+    scan's FLOPs, under 1 % of its layer's products at these widths, are
+    left out), and the CE product's FLOPs as computed, over the positions
+    padded to ``CE_CHUNK``."""
+    from repro_torch.models.steps import CE_CHUNK
+    matmul, n_attn = matmul_weights(cfg)
+    nq = cfg.n_heads * cfg.resolved_head_dim
     tokens = B * T
-    model = 6 * matmul * tokens + 12 * L * nq * T * tokens
+    model = 6 * matmul * tokens + 12 * n_attn * nq * T * tokens
     padded = B * (-(-T // CE_CHUNK) * CE_CHUNK)
     return {"model_flops": model,
-            "ce_flops_as_computed": 6 * padded * d * cfg.vocab_size}
+            "ce_flops_as_computed": 6 * padded * cfg.d_model
+            * cfg.vocab_size}
 
 
 # host operations that wait for the card
@@ -2649,12 +2786,14 @@ def train_phase(device, cfg=None, batch=(8, 128), steps: int = 8,
       * the card against the CPU: the config at 2 layers, the same params
         (drawn on the CPU) and a batch of ``cpu_check`` (B, T): the loss
         within ``TRAIN_LOSS_RTOL`` and every gradient leaf within
-        ``TRAIN_GRAD_RTOL`` (relative L2);
+        ``TRAIN_GRAD_RTOL`` or twice its change under a 1e-4 perturbation
+        of the embedding (``device_vs_cpu``; relative L2);
       * contiguous decode: ``decode`` = (B, prompt, steps, cache_len):
         ``prefill`` -> ``caches_from_prefill`` -> ``serve_step``s, every
         greedy token the dense forward's argmax or a near-tie
-        (``check_history``); the same with an int8 cache, its logits
-        finite and its agreement with the bf16 tokens reported;
+        (``check_history``); where the caches hold attention K/V (not
+        rwkv's), the same with an int8 cache, its logits finite and its
+        agreement with the bf16 tokens reported;
       * the launcher ``python -m repro_torch.launch.train --arch ARCH
         --steps 5 --batch B --seq T`` as a subprocess (``--device cpu``
         with a CPU ``device``: the reduced config), exit 0.
@@ -2671,8 +2810,7 @@ def train_phase(device, cfg=None, batch=(8, 128), steps: int = 8,
     from repro_torch.configs import get_config
     from repro_torch.models import steps as S
     from repro_torch.models import transformer as T
-    from repro_torch.train.optimizer import (adamw_update, tree_leaves,
-                                             tree_map)
+    from repro_torch.train.optimizer import adamw_update, tree_leaves
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     cfg = cfg or get_config(ARCH)
@@ -2777,55 +2915,31 @@ def train_phase(device, cfg=None, batch=(8, 128), steps: int = 8,
     bundle = {"params": params, "cfg": cfg}
     gen_pos = list(range(plen, plen + n_steps + 1))
     rows = [check_history(bundle, h.tolist(), gen_pos) for h in hist]
-    hist8, finite8 = contiguous_decode(params, cfg, prompts, cache_len,
-                                       n_steps, kv_dtype=torch.int8)
-    if not finite8:
-        raise AssertionError("the int8 cache's decode gave logits that are "
-                             "not finite")
-    same = (hist8[:, plen:] == hist[:, plen:])
     out["decode"] = {
         "rows": nb, "prompt": plen, "steps": n_steps,
         "cache_len": cache_len,
         "generated": sum(r["generated"] for r in rows),
         "equal": sum(r["equal"] for r in rows),
         "near_ties": sum(r["near_ties"] for r in rows),
-        "max_gap": max(r["max_gap"] for r in rows), "tolerance": NEAR_TIE,
-        "int8": {"finite": True,
-                 "tokens_equal_bf16": int(same.sum()),
-                 "rows_equal_bf16": int(same.all(1).sum()),
-                 "first_diff_by_row": [
-                     int(r.nonzero()[0, 0]) if r.any() else None
-                     for r in ~same]}}
+        "max_gap": max(r["max_gap"] for r in rows), "tolerance": NEAR_TIE}
+    if T._pattern(cfg) != "rwkv":
+        hist8, finite8 = contiguous_decode(params, cfg, prompts, cache_len,
+                                           n_steps, kv_dtype=torch.int8)
+        if not finite8:
+            raise AssertionError("the int8 cache's decode gave logits that "
+                                 "are not finite")
+        same = (hist8[:, plen:] == hist[:, plen:])
+        out["decode"]["int8"] = {
+            "finite": True, "tokens_equal_bf16": int(same.sum()),
+            "rows_equal_bf16": int(same.all(1).sum()),
+            "first_diff_by_row": [int(r.nonzero()[0, 0]) if r.any()
+                                  else None for r in ~same]}
     del params, opt, bundle, data
 
     # the card against the CPU, 2 layers at the config's width
-    cfg2 = dataclasses.replace(cfg, n_layers=2)
-    cpu_params = T.init_params(cfg2, seed=SEED, device="cpu")
-    cb, ct = cpu_check
-    cpu_data = _train_batch(cfg2, cb, ct, "cpu", seed=SEED + 2)
-    cl, cg = S.loss_and_grads(cpu_params, cfg2, cpu_data)
-    dev_params = tree_map(lambda t: t.to(dev), cpu_params)
-    dl, dg = S.loss_and_grads(dev_params, cfg2,
-                              {k: v.to(dev) for k, v in cpu_data.items()})
-    loss_rel = abs(float(dl) - float(cl)) / abs(float(cl))
-    errs = _grad_errors(dg, cg)
-    worst = max(errs, key=errs.get)
-    if loss_rel > TRAIN_LOSS_RTOL or errs[worst] > TRAIN_GRAD_RTOL:
-        raise AssertionError(
-            f"{dev.type} against the CPU: loss {float(dl)} / {float(cl)} "
-            f"(relative {loss_rel}, bound {TRAIN_LOSS_RTOL}); gradient "
-            f"{worst} relative L2 {errs[worst]} (bound {TRAIN_GRAD_RTOL})")
-    out["device_vs_cpu"] = {
-        "layers": 2, "batch": [cb, ct], "loss": float(dl),
-        "cpu_loss": float(cl), "loss_rel": loss_rel,
-        "max_grad_rel_l2": errs[worst], "worst_leaf": worst,
-        "grad_rel_l2": errs,
-        "tolerance": {"loss_rel": TRAIN_LOSS_RTOL,
-                      "grad_rel_l2": TRAIN_GRAD_RTOL}}
-    del cpu_params, dev_params, cg, dg
-    if cuda:
-        gc.collect()
-        torch.cuda.empty_cache()
+    out["device_vs_cpu"] = device_vs_cpu(
+        dataclasses.replace(cfg, n_layers=2), dev, cpu_check,
+        TRAIN_GRAD_RTOL)
 
     # the launcher, as a subprocess
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
@@ -2844,6 +2958,351 @@ def train_phase(device, cfg=None, batch=(8, 128), steps: int = 8,
         raise AssertionError(f"the launcher printed no last step: {lines}")
     out["launcher"] = {"argv": cmd[2:], "wall_s": time.perf_counter() - t0,
                        "stdout": lines}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5i: the SSM and hybrid families (zamba2-7b served, rwkv6-1.6b
+# trained)
+# ---------------------------------------------------------------------------
+
+SSM_ARCH, RWKV_ARCH = "zamba2-7b", "rwkv6-1.6b"
+# zamba2-7b at random weights amplifies rounding: two plain prefills that
+# differ only in the fp32 summation order of their scans (the kernel's
+# plain twin and ``gla_chunked``) end 0.37 apart in the last logits (mean
+# 0.058, logits of std 1.2; H100 80GB HBM3, 700.00 W, this phase's
+# ``plain_vs_chunked``).  So the kernel's prefill is held to that spread,
+# measured in the same run without the kernel: its last logits against
+# the plain twin's within SSM_SPREAD_FACTOR times the two plain
+# prefills' distance, per element and on the mean (a scan off by a chunk
+# or a head moves the mean by O(1)); and a decoded token the dense
+# forward disagrees with is accepted within SSM_SPREAD_FACTOR times the
+# two plain dense forwards' largest logit distance at the generated
+# positions, and never less than NEAR_TIE
+SSM_SPREAD_FACTOR = 2.0
+@contextlib.contextmanager
+def chunked_scan():
+    """Inside the block the Mamba2 blocks run ``gla_chunked`` on CUDA
+    too: the scan in plain torch, in another fp32 summation order than
+    the kernel's plain twin."""
+    from repro_torch.models import gla, mamba2
+    real = mamba2.ssd_scan
+    mamba2.ssd_scan = lambda q, k, v, logw, cfg, state: gla.gla_chunked(
+        q, k, v, logw, mode="mamba", chunk=min(cfg.ssm.chunk_size,
+                                              q.shape[2]),
+        scalar_decay=True)
+    try:
+        yield
+    finally:
+        mamba2.ssd_scan = real
+
+
+@contextlib.contextmanager
+def plain_scan():
+    """Inside the block the Mamba2 blocks' scan runs the kernel's plain
+    version (``ops.gla_scan_scalar`` replaced by
+    ``gla_scan_scalar_plain``), the same function with no kernel."""
+    from repro_torch.kernels import gla_scan as gla
+    from repro_torch.kernels import ops
+    real = ops.gla_scan_scalar
+    ops.gla_scan_scalar = lambda q, k, v, logw, *, chunk=64: \
+        gla.gla_scan_scalar_plain(q, k, v, logw, chunk=chunk)
+    try:
+        yield
+    finally:
+        ops.gla_scan_scalar = real
+
+
+def first_scan_inputs(params, cfg, toks):
+    """(q, k, v, logw) the first Mamba2 layer of a zamba2 forward hands
+    its scan for ``toks``: q and k broadcast across heads, as
+    ``mamba2._ssd_inputs`` makes them."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba2
+    lp = {k: {n: t[0, 0] for n, t in v.items()}
+          for k, v in params["mamba_p"].items()}
+    p = lp["mamba"]
+    with torch.no_grad():
+        h = L.rmsnorm(lp["ln"], L.embed(params["embed"], toks), cfg.norm_eps)
+        z, xbc, dt_raw = mamba2._split_proj(h @ p["w_in"].to(h.dtype), cfg)
+        prev = xbc.new_zeros((xbc.shape[0], cfg.ssm.conv_kernel - 1,
+                              xbc.shape[2]))
+        xbc, _ = mamba2._causal_conv(xbc, p["conv_w"], p["conv_b"], prev)
+        return mamba2._ssd_inputs(p, xbc, dt_raw, cfg)[:4]
+
+
+def decode_step_bytes(params, caches) -> float:
+    """Bytes one contiguous-cache decode step must move: every parameter
+    read once but the embedding table (a row per sequence, left out), the
+    caches read and the new caches written."""
+    nbytes = sum(t.numel() * t.element_size()
+                 for name, sub in params.items() if name != "embed"
+                 for t in _leaves(sub))
+    cache = sum(t.numel() * t.element_size() for t in caches)
+    return float(nbytes + 2 * cache)
+
+
+def zamba2_serve(device, cfg, prompts=(8, 256), n_steps: int = 32,
+                 cache_len: int = 512) -> dict:
+    """zamba2 at ``cfg``'s width from a seeded init, its bf16 serving copy
+    only (the fp32 matmul leaves are dropped once cast):
+
+      * ``prompts`` (B, T) through ``steps.prefill`` after a warm-up
+        prefill, the scan's launch count set to 0 just before: one launch
+        per Mamba2 layer on CUDA (none on the CPU, where the blocks run
+        ``gla_chunked``);
+      * the same prefill with the kernel's plain version (``plain_scan``)
+        and with ``gla_chunked`` (``chunked_scan``): the kernel's last
+        logits within ``SSM_SPREAD_FACTOR`` times the two plain
+        prefills' distance of the plain twin's (per element and on the
+        mean); the first layer's scan y and S within phase 3's bounds
+        (``gla_errors``);
+      * ``caches_from_prefill`` to ``cache_len`` positions and
+        ``n_steps`` greedy ``serve_step``s, every token the dense
+        forward's argmax or a near-tie (``check_history``) within
+        ``SSM_SPREAD_FACTOR`` times the two plain dense forwards'
+        largest logit distance at the generated positions (at least
+        ``NEAR_TIE``).
+    On CUDA also the prefill's and a decode step's ms, the scan kernel's
+    ms and device ms at the prefill's shape beside its bound and its plain
+    version, one decode step under ``torch.profiler`` (its device
+    operations: the launches it makes; busy ms and idle share), the decode
+    step's bound (``decode_step_bytes``) and peak memory."""
+    import torch
+    from repro_torch.kernels import gla_scan as gla
+    from repro_torch.kernels import launches as lc
+    from repro_torch.models import mamba2
+    from repro_torch.models import steps as S
+    from repro_torch.models import transformer as T
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.serving_params(T.init_params(cfg, seed=SEED, device=dev))
+    sync()
+    R, P, rem = T._zamba2_shape(cfg)
+    n_mamba = P * R + rem
+    out = {"arch": cfg.name, "params": T.count_params(cfg),
+           "mamba2_layers": n_mamba, "init_s": time.perf_counter() - t0}
+    B, plen = prompts
+    gen = torch.Generator().manual_seed(SEED + 3)
+    toks = torch.randint(1, cfg.vocab_size, (B, plen), generator=gen).to(dev)
+
+    S.prefill(params, cfg, toks)                 # warm-up
+    sync()
+    lc.reset(gla.gla_scan_scalar)
+    t0 = time.perf_counter()
+    last, raw = S.prefill(params, cfg, toks)
+    sync()
+    prefill_s = time.perf_counter() - t0
+    launched = gla.gla_scan_scalar.launches
+    if launched != (n_mamba if cuda else 0):
+        raise AssertionError(f"a {cfg.name} prefill launched the scan "
+                             f"kernel {launched} times over {n_mamba} "
+                             "Mamba2 layers")
+    out["prefill"] = {"batch": [B, plen], "scan_launches": launched}
+    with plain_scan():
+        plain_last, _ = S.prefill(params, cfg, toks)
+    with chunked_scan():
+        chunked_last, _ = S.prefill(params, cfg, toks)
+    diff = (last - plain_last).abs()
+    err, mean = float(diff.max()), float(diff.mean())
+    spread = (chunked_last - plain_last).abs()
+    bound = SSM_SPREAD_FACTOR * float(spread.max())
+    mean_bound = SSM_SPREAD_FACTOR * float(spread.mean())
+    if not (math.isfinite(err) and err <= bound and mean <= mean_bound):
+        raise AssertionError(f"{cfg.name} prefill, the scan kernel against "
+                             f"its plain version: last logits max abs "
+                             f"{err}, mean {mean} (bounds {bound}, "
+                             f"{mean_bound}: {SSM_SPREAD_FACTOR} x the two "
+                             "plain prefills' distance)")
+    q, k, v, logw = first_scan_inputs(params, cfg, toks)
+    y, s = mamba2.ssd_scan_kernel(q, k, v, logw, cfg.ssm.chunk_size)
+    with plain_scan():
+        py, ps = mamba2.ssd_scan_kernel(q, k, v, logw, cfg.ssm.chunk_size)
+    sync()
+    y_err, s_err = gla_errors(y, s, py, ps)
+    out["kernel_vs_plain"] = {
+        "last_logits_max_abs": err, "last_logits_mean_abs": mean,
+        "plain_vs_chunked": {"max_abs": float(spread.max()),
+                             "mean_abs": float(spread.mean())},
+        "tolerance": {"max": bound, "mean": mean_bound,
+                      "factor": SSM_SPREAD_FACTOR},
+        "logits_std": float(plain_last.std()),
+        "first_layer_scan": {"y": y_err, "S": s_err},
+        "scan_tolerance": {"y": {"atol": GLA_Y_ATOL, "rtol": ATTN_RTOL},
+                           "S": {"atol": GLA_S_ATOL, "rtol": GLA_S_RTOL}}}
+
+    caches = S.caches_from_prefill(cfg, raw, B, cache_len)
+    del raw
+    tok = torch.argmax(last, dim=-1)
+    hist, step_s, finite = [toks, tok[:, None]], [], True
+    for i in range(n_steps):
+        sync()
+        t0 = time.perf_counter()
+        tok, logits, caches = S.serve_step(params, caches, tok, plen + i,
+                                           cfg=cfg)
+        sync()
+        step_s.append(time.perf_counter() - t0)
+        finite = finite and bool(torch.isfinite(logits).all())
+        hist.append(tok[:, None].to(toks.dtype))
+    if not finite:
+        raise AssertionError(f"{cfg.name}: a decode step's logits are not "
+                             "finite")
+    hist = torch.cat(hist, 1)
+    bundle = {"params": params, "cfg": cfg}
+    gen_pos = list(range(plen, plen + n_steps + 1))
+    with torch.no_grad():
+        at = [i - 1 for i in gen_pos]                  # the logits there
+        with plain_scan():
+            a = T.forward_seq(params, cfg, hist)[0][:, at]
+        with chunked_scan():
+            b = T.forward_seq(params, cfg, hist)[0][:, at]
+        dense_spread = float((a - b).abs().max())
+        del a, b
+    tol = max(NEAR_TIE, SSM_SPREAD_FACTOR * dense_spread)
+    rows = [check_history(bundle, h.tolist(), gen_pos, tol) for h in hist]
+    out["decode"] = {
+        "rows": B, "prompt": plen, "steps": n_steps, "cache_len": cache_len,
+        "generated": sum(r["generated"] for r in rows),
+        "equal": sum(r["equal"] for r in rows),
+        "near_ties": sum(r["near_ties"] for r in rows),
+        "max_gap": max(r["max_gap"] for r in rows),
+        "dense_plain_vs_chunked_max_abs": dense_spread, "tolerance": tol}
+    if cuda:
+        step_ms = sorted(step_s[1:])[len(step_s[1:]) // 2] * 1e3
+        b_ms, b_by = bound_ms(decode_step_bytes(params, caches), 0)
+        out["prefill"].update(ms=prefill_s * 1e3,
+                              tokens_per_s=B * plen / prefill_s)
+        out["decode"].update(step_ms=step_ms,
+                             step_ms_all=[t * 1e3 for t in step_s],
+                             bound_ms=b_ms, bound_by=b_by,
+                             bound_share=b_ms / step_ms)
+        pos = plen + n_steps + 1
+        out["decode"]["profile"] = profile_step(
+            lambda: S.serve_step(params, caches, tok, pos, cfg=cfg))
+        # the scan at the prefill's shape, as the blocks hand it over
+        qc, kc, vc = (t.contiguous() for t in (q, k, v))
+        lw = logw[..., 0].float().contiguous()
+        chunk = mamba2.kernel_chunk(cfg.ssm.chunk_size, plen)
+        flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+        timed = timings(lambda: gla.gla_scan_scalar(qc, kc, vc, lw,
+                                                    chunk=chunk),
+                        lambda: gla.gla_scan_scalar_plain(qc, kc, vc, lw,
+                                                          chunk=chunk),
+                        None, flush)
+        kernel = timed.pop("fns")[0]
+        N, Pd = qc.shape[-1], vc.shape[-1]
+        s_ms, s_by = bound_ms(*gla_work(B, qc.shape[1], plen, N, Pd, chunk))
+        out["scan_at_prefill_shape"] = {
+            "shape": list(qc.shape[:3]) + [N, Pd], "chunk": chunk, **timed,
+            "device_ms": queued_ms(kernel, flush=flush),
+            "device_ms_by": "cuda_events", "bound_ms": s_ms,
+            "bound_by": s_by}
+        out["scan_at_prefill_shape"]["bound_share"] = \
+            s_ms / out["scan_at_prefill_shape"]["device_ms"]
+        out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del flush, qc, kc, vc, lw
+    del params, caches, bundle, q, k, v, logw, y, s, py, ps
+    if cuda:
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def zamba2_train_cut(device, cfg, batch=(2, 64)) -> dict:
+    """zamba2's ``loss_and_grads`` (remat on) at ``cfg``'s width cut to one
+    period (``hybrid_attn_every`` layers: the Mamba2 layers and the shared
+    block) on ``device`` against the CPU (``device_vs_cpu``, gradient
+    leaves within ``TRAIN_GRAD_RTOL`` or their conditioning's bound).  A
+    gradient is needed, so the blocks run ``gla_chunked`` under autograd
+    and the scan kernel is launched no time (its count set to 0 just
+    before the CPU's and the card's runs)."""
+    import dataclasses
+    from repro_torch.kernels import gla_scan as gla
+    from repro_torch.kernels import launches as lc
+    lc.reset(gla.gla_scan_scalar)
+    out = device_vs_cpu(dataclasses.replace(
+        cfg, n_layers=cfg.hybrid_attn_every), device, batch,
+        TRAIN_GRAD_RTOL)
+    launched = gla.gla_scan_scalar.launches
+    if launched:
+        raise AssertionError(f"the {cfg.name} train step launched the scan "
+                             f"kernel {launched} times (it has no backward)")
+    return {**out, "scan_launches": launched}
+
+
+def launcher_refusals(device) -> dict:
+    """The launchers on zamba2-7b where they must refuse, as subprocesses:
+    ``launch.train --device DEV`` (on CUDA: the fp32 training state
+    exceeds the card; with no GPU: no CUDA) and ``launch.serve --real
+    --device DEV`` (no paged path for the family, the reference's
+    message).  Each must exit non-zero with its message and no
+    traceback."""
+    import os
+    import torch
+    cuda = torch.device(device).type == "cuda"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    dev = "cuda" if cuda else "cpu"
+    cases = {
+        "train": (["repro_torch.launch.train", "--arch", SSM_ARCH,
+                   "--steps", "1", "--device", "cuda"],
+                  "exceeds the card's memory" if cuda
+                  else "torch.cuda.is_available() is false"),
+        "serve": (["repro_torch.launch.serve", "--real", "--arch", SSM_ARCH,
+                   "--conversations", "1", "--device", dev],
+                  "real-mode serving needs a uniform GQA arch")}
+    out = {}
+    for name, (argv, want) in cases.items():
+        run = subprocess.run([sys.executable, "-m", *argv], cwd=ROOT,
+                             env=env, capture_output=True, text=True,
+                             timeout=300)
+        said = run.stderr.strip().splitlines()
+        if run.returncode == 0 or not said or want not in said[-1] \
+                or "Traceback" in run.stderr:
+            raise AssertionError(f"{' '.join(argv)} exited "
+                                 f"{run.returncode}: {run.stderr[-2000:]}")
+        out[name] = {"argv": argv, "exit": run.returncode,
+                     "message": said[-1]}
+    return out
+
+
+def ssm_phase(device, zcfg=None, rcfg=None, serve=((8, 256), 32, 512),
+              cut_batch=(2, 64), train=None) -> dict:
+    """The SSM and hybrid families on ``device`` (full width where the
+    configs are not given, for a rehearsal on the CPU):
+
+      * ``zamba2``: zamba2-7b served through the contiguous-cache steps
+        (``zamba2_serve``), the SSD scan kernel once per Mamba2 layer of
+        a prefill (68);
+      * ``zamba2_train``: its train step cut to one period, against the
+        CPU (``zamba2_train_cut``), no scan kernel launched;
+      * ``rwkv6``: rwkv6-1.6b trained and decoded through ``train_phase``
+        (``train``: its keyword arguments), its launcher as a
+        subprocess;
+      * ``refusals``: ``launcher_refusals``."""
+    from repro_torch.configs import get_config
+    zcfg = zcfg or get_config(SSM_ARCH)
+    rcfg = rcfg or get_config(RWKV_ARCH)
+    prompts, n_steps, cache_len = serve
+    parts = {
+        "zamba2": lambda: zamba2_serve(device, zcfg, prompts, n_steps,
+                                       cache_len),
+        "zamba2_train": lambda: zamba2_train_cut(device, zcfg, cut_batch),
+        "rwkv6": lambda: train_phase(device, cfg=rcfg, **(train or {})),
+        "refusals": lambda: launcher_refusals(device)}
+    out = {}
+    for name, run in parts.items():
+        out[name] = run()
+        # each part's result as it comes, on stderr: a later part's
+        # failure leaves the earlier ones readable
+        print(json.dumps({"ssm_part": name, **out[name]}), file=sys.stderr,
+              flush=True)
     return out
 
 
@@ -3118,6 +3577,13 @@ def main() -> int:
     # (the probe's line names the card and its power limit)
     emit("train", **phase_alone("train"))
 
+    # 5i. the SSM and hybrid families: zamba2-7b served at full width
+    # through the SSD scan kernel, rwkv6-1.6b trained, in a process of
+    # its own
+    torch.cuda.empty_cache()
+    ssm = phase_alone("ssm")
+    emit("ssm", **ssm)
+
     # 6. device times of phase 3's calls, after the timed engine runs
     for t in all_timed.values():
         add_device_times(t, flush)
@@ -3140,6 +3606,9 @@ def main() -> int:
     serving = "serving (ServingEngine, the main path)"
     ops_path = ("repro_torch.kernels.ops at full width; no caller on the "
                 "serving path, so no launches there")
+    ssm_path = ("zamba2-7b prefill (steps.prefill -> forward_seq -> "
+                "mamba2.ssd_scan), one launch per Mamba2 layer")
+    zamba = ssm["zamba2"]
     rows = []
     for (kname, src, replaces, path, times, work, err, launched) in (
             ("paged_attention", "paged_attention.cu",
@@ -3165,9 +3634,11 @@ def main() -> int:
              flash[(1, 2048)]["times"], flash[(1, 2048)]["work"],
              max(f["err"] for f in flash.values()), ops_launches),
             ("gla_scan_scalar", "gla_scan.cu",
-             "src/repro/kernels/gla_scan.py:85", ops_path, gla_t,
-             gla_work(1, 112, 4096, 64, 64, 64), max(gla_err),
-             ops_launches)):
+             "src/repro/kernels/gla_scan.py:85", ssm_path, gla_t,
+             gla_work(1, 112, 4096, 64, 64, 64),
+             max(*gla_err, *zamba["kernel_vs_plain"][
+                 "first_layer_scan"].values()),
+             {"gla_scan_scalar": zamba["prefill"]["scan_launches"]})):
         b_ms, b_by = bound_ms(*work)
         rows.append({
             "name": kname, "route": "cuda",
@@ -3190,6 +3661,12 @@ def main() -> int:
             "bound_share": b_ms / times["device_ms"],
             "library_device_ms": times["library_device_ms"]})
     rows[-1]["library"] = "none: no single PyTorch call computes the scan"
+    # the scan: launches on each path; its times at the prefill's shape
+    rows[-1]["launches_by_path"] = {
+        "zamba2_prefill": zamba["prefill"]["scan_launches"],
+        "zamba2_train_step": ssm["zamba2_train"]["scan_launches"],
+        "ops": ops_launches["gla_scan_scalar"]}
+    rows[-1]["zamba2_prefill_shape"] = zamba["scan_at_prefill_shape"]
     # paged attention at olmoe-1b-7b's group of 1, the engine's bucket
     g1_bound, g1_by = bound_ms(*attention_work(g1_case))
     rows[0]["group1_B8_pages64"] = {

@@ -1,6 +1,10 @@
 """Architecture config registry of the port.
 
-Holds only the architectures the port can serve.  ``get_config(arch_id)``
+Holds the architectures the port runs: the uniform GQA decoders (dense,
+MoE, llava's language model), which it trains and serves, and the SSM
+and hybrid families (rwkv6-1.6b, zamba2-7b), which it trains and runs
+through the contiguous-cache step functions but does not serve in real
+mode (no paged path, as in the reference).  ``get_config(arch_id)``
 returns the full published config; ``get_smoke_config(arch_id)`` the
 reduced same-family variant the CPU tests use.
 """
@@ -28,6 +32,8 @@ _REGISTRY: Dict[str, str] = {
     "mistral-nemo-12b": "repro_torch.configs.mistral_nemo_12b",
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
     "llava-next-mistral-7b": "repro_torch.configs.llava_next_mistral_7b",
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
+    "rwkv6-1.6b": "repro_torch.configs.rwkv6_1p6b",
 }
 
 

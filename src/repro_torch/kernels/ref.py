@@ -1,9 +1,8 @@
 """Plain oracles the port's tests hold its kernels to.
 
-Counterpart of ``repro/kernels/ref.py`` (``block_copy_ref``, ``mha_ref``)
-and of the sequential scan ``repro/models/gla.py::gla_scan_ref``, which
-is kept here as a test oracle for ``kernels/gla_scan.py`` until the
-model family that uses it is ported.
+Counterpart of ``repro/kernels/ref.py`` (``block_copy_ref``, ``mha_ref``).
+The SSD scan's sequential oracle, ``gla_scan_ref``, lives with its model
+family in ``models/gla.py``, as in the reference.
 """
 from __future__ import annotations
 
@@ -36,31 +35,3 @@ def mha_ref(q, k, v, causal: bool = True, scale: float | None = None):
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhts,bshd->bthd", probs, v.float())
     return out.to(q.dtype)
-
-
-def gla_scan_ref(q, k, v, logw, u=None, mode: str = "mamba",
-                 initial_state=None):
-    """O(T) sequential gated-linear-attention scan, one token at a time.
-
-    q, k: (B, H, T, N); v: (B, H, T, P); logw: (B, H, T, N) (broadcast a
-    scalar decay over N).  ``mode="mamba"`` reads the state after the
-    token's update; ``mode="rwkv"`` before it, plus the ``u`` (H, N) bonus
-    on the token's own k v^T.  Returns y (B, H, T, P) in q's dtype and the
-    final state (B, H, N, P) in fp32."""
-    B, H, T, N = q.shape
-    P = v.shape[-1]
-    w = torch.exp(logw.float())
-    q32, k32, v32 = q.float(), k.float(), v.float()
-    S = (torch.zeros((B, H, N, P), dtype=torch.float32, device=q.device)
-         if initial_state is None else initial_state.float())
-    ys = []
-    for t in range(T):
-        kv = k32[:, :, t, :, None] * v32[:, :, t, None, :]       # (B,H,N,P)
-        if mode == "rwkv":
-            read = S + (u[None, :, :, None] * kv if u is not None else kv)
-            ys.append(torch.einsum("bhn,bhnp->bhp", q32[:, :, t], read))
-            S = w[:, :, t, :, None] * S + kv
-        else:
-            S = w[:, :, t, :, None] * S + kv
-            ys.append(torch.einsum("bhn,bhnp->bhp", q32[:, :, t], S))
-    return torch.stack(ys, dim=2).to(q.dtype), S

@@ -5,7 +5,9 @@ with the same flags, output lines and synthetic data, and one more flag,
   * ``--device cuda`` trains the arch's published config at full width
     on the GPU from the port's seeded init (``init_params(cfg, seed,
     device)``), and exits non-zero where no GPU is there (no CPU
-    fallback);
+    fallback) or where the fp32 training state (16 B a parameter:
+    parameters, gradients and two AdamW moments) exceeds the card's
+    memory, before allocating (zamba2-7b: 5.7 B parameters);
   * ``--device cpu`` trains the arch's reduced config, as the
     reference's launcher does on the CPU.
 
@@ -16,6 +18,8 @@ launcher's choice, run eagerly (no CUDA graph yet):
       --steps 200 --batch 8 --seq 128
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --steps 3 --batch 2 --seq 32 --checkpoint /tmp/ckpt.npz
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \\
+      --steps 5 --batch 8 --seq 128
 
 Each step's batch is (batch, seq + 1) uniform tokens from a
 ``torch.Generator`` on the device seeded with ``--seed``: tokens the
@@ -48,6 +52,7 @@ def main(argv=None) -> None:
 
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.models import steps as S
+    from repro_torch.models.transformer import count_params
     from repro_torch.train.checkpoint import save_checkpoint
     from repro_torch.train.optimizer import tree_leaves
 
@@ -57,6 +62,15 @@ def main(argv=None) -> None:
                              "false; pass --device cpu to train the "
                              "reduced config")
         cfg = get_config(args.arch)
+        # parameters, gradients and two AdamW moments, all fp32
+        need = 16 * count_params(cfg)
+        have = torch.cuda.get_device_properties(0).total_memory
+        if need > have:
+            raise SystemExit(
+                f"--device cuda: {cfg.name}'s fp32 training state (16 B x "
+                f"{count_params(cfg):,} parameters = {need:,} B) exceeds "
+                f"the card's memory ({have:,} B); pass --device cpu to "
+                "train the reduced config")
     else:
         cfg = get_smoke_config(args.arch)
     device = torch.device(args.device)

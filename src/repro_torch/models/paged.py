@@ -48,6 +48,16 @@ def supports_paged(cfg: ModelConfig) -> bool:
             and not cfg.encoder_decoder)
 
 
+def check_paged(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` unless the paged path serves ``cfg``:
+    a uniform GQA decoder the port runs (the SSM and hybrid families run
+    through the contiguous-cache steps only, as in the reference)."""
+    check_supported(cfg)
+    if not supports_paged(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: the paged path serves uniform GQA decoders only")
+
+
 def page_tile(n_pages: int) -> int:
     """Pages per tile of the reference kernel: the largest of {4, 2, 1}
     dividing n_pages.  The port's kernel walks its own tiles; this only
@@ -63,7 +73,7 @@ def _decode_hidden(params, pool, block_tables, context_lens, tokens,
     """Shared decode body up to the final norm: one token per row through
     the paged pool.  Returns (x_last (B, d), pool) — the pool is written
     in place (each row's new K/V at position ``context_lens``)."""
-    check_supported(cfg)
+    check_paged(cfg)
     B = tokens.shape[0]
     bs = pool.shape[3]
     n_pages = block_tables.shape[1]
@@ -222,7 +232,7 @@ def _prefill_chunk_core(params, tokens, k_carry, v_carry, prefix_len: int,
     prefix_len + i) attends keys [0, prefix_len + i] of one buffer.
     Returns (last_logits (V,) at position prefix_len + chunk_len - 1,
     k_carry, v_carry)."""
-    check_supported(cfg)
+    check_paged(cfg)
     B, C_pad = tokens.shape
     S_pad = k_carry.shape[1]
     dev = tokens.device

@@ -3,7 +3,7 @@
 Counterpart of ``repro/models/params.py``: the reference counts the
 leaves of ``init_params`` through ``jax.eval_shape``; the port counts
 the same shapes analytically (``transformer.count_params``), for the
-architectures it serves.
+architectures it runs.
 """
 from __future__ import annotations
 

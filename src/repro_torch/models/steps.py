@@ -2,7 +2,7 @@
 serve_step.
 
 Counterpart of ``repro/models/steps.py`` for the configs the port's
-registry holds (the uniform layer pattern).  They operate on contiguous
+registry holds (the uniform, zamba2 and rwkv layer patterns).  They operate on contiguous
 decode caches (``transformer.init_caches``); the serving engine's paged
 decode path lives in ``core/`` and ``models/paged.py``.  Each runs
 eagerly: the reference's launcher jits its train step, and capturing
@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
+from repro_torch.models.layers import COMPUTE_DTYPE
 from repro_torch.train.optimizer import (AdamWState, adamw_init,
                                          adamw_update, tree_leaves,
                                          tree_map)
@@ -109,9 +110,11 @@ def make_train_step(cfg: ModelConfig, lr: float = 3e-4, remat: bool = True):
 @torch.no_grad()
 def prefill(params, cfg: ModelConfig, tokens, extra_embeds=None,
             encoder_frames=None):
-    """Returns (last-position logits (B, V), caches (k, v) each
-    (L, B, T, Hkv, D)) sized to the prompt; ``caches_from_prefill``
-    pads them to a decode budget."""
+    """Returns (last-position logits (B, V), caches) with
+    ``forward_seq``'s caches sized to the prompt (uniform: (k, v) each
+    (L, B, T, Hkv, D)); ``caches_from_prefill`` pads them to a decode
+    budget.  Runs without autograd, so a zamba2 prefill on CUDA takes the
+    SSD scan kernel in every Mamba2 layer."""
     logits, caches, _ = T.forward_seq(params, cfg, tokens,
                                       extra_embeds=extra_embeds,
                                       encoder_frames=encoder_frames,
@@ -123,20 +126,39 @@ def make_prefill(cfg: ModelConfig):
     return functools.partial(prefill, cfg=cfg)
 
 
-def caches_from_prefill(cfg: ModelConfig, raw, batch: int,
-                        cache_len: int) -> T.KVCaches:
-    """``prefill``'s (k, v) written at offset 0 of zero ``KVCaches`` of
-    ``cache_len`` positions, in the caches' dtype (the reference's cast:
-    an int8 cache is filled by ``serve_step``, which quantises)."""
-    if cfg.layer_pattern != "uniform" or cfg.mla is not None \
-            or cfg.encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: caches_from_prefill holds the uniform GQA branch "
-            "only; the other families are ROADMAP queue 1 item 5")
-    k, v = raw
+def caches_from_prefill(cfg: ModelConfig, raw, batch: int, cache_len: int):
+    """``prefill``'s caches as the decode caches of ``cache_len``
+    positions (``init_caches``' type for the config), in their dtypes
+    (the reference's cast: an int8 cache is filled by ``serve_step``,
+    which quantises).  Attention K/V is written at offset 0 of zero
+    caches; recurrent states (zamba2's conv windows and SSM states,
+    rwkv's token shifts and S) are taken whole.  Raises
+    ``NotImplementedError`` for the families the port does not run yet
+    (``transformer.check_supported``)."""
+    T.check_supported(cfg)
+    pat = T._pattern(cfg)
+    if pat == "rwkv":
+        return T.RWKVCaches(shift_tm=raw.shift_tm.to(COMPUTE_DTYPE),
+                            shift_cm=raw.shift_cm.to(COMPUTE_DTYPE),
+                            S=raw.S)
+    if pat == "zamba2":
+        conv_p, ssm_p, conv_rem, ssm_rem, k, v = raw
+    else:
+        k, v = raw
     full = T.init_caches(cfg, batch, cache_len, device=k.device)
-    full.k[:, :, :k.shape[2]] = k.to(full.k.dtype)
-    full.v[:, :, :v.shape[2]] = v.to(full.v.dtype)
+    if pat == "zamba2":
+        full = full._replace(
+            conv_p=conv_p.to(full.conv_p.dtype),
+            ssm_p=ssm_p.to(full.ssm_p.dtype),
+            conv_rem=(full.conv_rem if conv_rem is None
+                      else conv_rem.to(full.conv_rem.dtype)),
+            ssm_rem=(full.ssm_rem if ssm_rem is None
+                     else ssm_rem.to(full.ssm_rem.dtype)))
+        fk, fv = full.attn_k, full.attn_v
+    else:
+        fk, fv = full.k, full.v
+    fk[:, :, :k.shape[2]] = k.to(fk.dtype)
+    fv[:, :, :v.shape[2]] = v.to(fv.dtype)
     return full
 
 

@@ -1,21 +1,30 @@
-"""Parameters and the plain sequence forward of a uniform decoder.
+"""Parameters, the plain sequence forward and the contiguous-cache decode
+step of every layer pattern the port runs.
 
 Counterpart of ``repro/models/transformer.py`` (``init_params``,
-``forward_seq``, ``KVCaches``, ``init_caches``, ``decode_step``), for the
-uniform layer pattern with GQA attention and a dense or MoE FFN (qwen2-1.5b,
-llama3.2-3b, mistral-nemo-12b, olmoe-1b-7b, and llava-next-mistral-7b's
-language model behind its vision stub).  Parameters keep the reference's
-STACKED layout — every per-layer leaf carries a leading ``n_layers``
-axis, as ``_stack_init`` builds it — so ``params_from_numpy`` converts the
-reference's parameters leaf by leaf:
+``forward_seq``, the cache tuples, ``init_caches``, ``decode_step``) for:
+  * the uniform pattern with GQA attention and a dense or MoE FFN
+    (qwen2-1.5b, llama3.2-3b, mistral-nemo-12b, olmoe-1b-7b, and
+    llava-next-mistral-7b's language model behind its vision stub);
+  * zamba2 (zamba2-7b): periods of ``hybrid_attn_every - 1`` Mamba2
+    layers and one attention block whose parameters are SHARED by every
+    period, then a remainder of Mamba2 layers;
+  * rwkv (rwkv6-1.6b): RWKV6 blocks in every layer.
+Parameters keep the reference's STACKED layout — every per-layer leaf
+carries the leading axes ``_stack_init`` gives it — so
+``params_from_numpy`` converts the reference's parameters leaf by leaf:
 
-    {"embed": {"table"}, "final_norm": {"scale"},
-     "layers": {"ln1": {"scale"}, "ln2": {"scale"},
+    {"embed": {"table"}, "final_norm": {"scale"}, ["lm_head": {"table"}],
+     uniform: "layers": {"ln1": {"scale"}, "ln2": {"scale"},
                 "attn": {"wq", "wk", "wv", "wo", ["bq", "bk", "bv"]},
                 "ffn": {"w_gate", "w_up", "w_down"}      (dense)
                     or {"router", "w_gate", "w_up", "w_down",
                         ["shared": {"w_gate", "w_up", "w_down"}]}  (MoE)},
-     ["lm_head": {"table"}], ["mm_proj": {"w"}]}
+              ["mm_proj": {"w"}];
+     zamba2:  "mamba_p": {"ln": {"scale"}, "mamba": {...}}  (P, R, ...),
+              ["mamba_rem": the same, (rem, ...)],
+              "attn_shared": {"ln1", "ln2", "attn", "ffn"}  (one block);
+     rwkv:    "layers": {"ln1": {"scale"}, "block": {...}}  (L, ...)}
 """
 from __future__ import annotations
 
@@ -28,30 +37,50 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
-from repro_torch.models import moe
+from repro_torch.models import mamba2, moe, rwkv6
 
-# leaves of the layer stack that are matrix-product weights or biases;
-# norm scales stay fp32 (the reference multiplies fp32 activations by
-# them), and so does a MoE router (the reference routes in fp32)
+# leaves of the layer stacks that are matrix-product weights or biases
+# (cast at use by every layer); norm scales stay fp32 (the reference
+# multiplies fp32 activations by them), and so do a MoE router (the
+# reference routes in fp32) and the SSM blocks' decays, A_log, dt_bias,
+# u_bonus, mixes and LoRA factors
 _MATMUL_LEAVES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv",
-                  "w_gate", "w_up", "w_down")
+                  "w_gate", "w_up", "w_down",
+                  "w_in", "w_out",                         # mamba2
+                  "w_r", "w_k", "w_v", "w_g", "w_o",       # rwkv6 time mix
+                  "cm_wr", "cm_wk", "cm_wv")               # rwkv6 channel mix
+# the parameter stacks, by layer pattern
+_STACKS = ("layers", "mamba_p", "mamba_rem", "attn_shared")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not serve:
-    anything but a uniform GQA decoder whose FFN is dense or MoE in every
-    layer.  A vision frontend is a stub whose embeddings ``forward_seq``
-    takes as ``extra_embeds``; serving ignores it, as the reference's
-    does."""
+    """Raise ``NotImplementedError`` for what the port does not run yet:
+    MLA attention, a skip_first MoE, the local_global layer pattern and
+    encoder-decoder models (ROADMAP queue 1 item 5).  A vision frontend
+    is a stub whose embeddings ``forward_seq`` takes as
+    ``extra_embeds``; serving ignores it, as the reference's does."""
     moe_ok = cfg.moe is None or cfg.moe.layer_pattern == "all"
     frontend_ok = cfg.frontend is None or cfg.frontend.kind == "vision"
-    if (cfg.layer_pattern != "uniform" or not moe_ok
+    if (_pattern(cfg) not in ("uniform", "zamba2", "rwkv") or not moe_ok
             or cfg.mla is not None or cfg.encoder_decoder
             or not frontend_ok):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves uniform GQA decoders with a "
-            "dense or all-layer MoE FFN only (MLA, skip_first MoE and the "
-            "other layer patterns are not ported yet)")
+            f"{cfg.name}: the port runs uniform GQA decoders (dense or "
+            "all-layer MoE FFN), zamba2 and rwkv; MLA attention, a "
+            "skip_first MoE, the local_global pattern, encoder-decoder "
+            "models and audio frontends are not ported yet (ROADMAP queue "
+            "1 item 5)")
+
+
+def _pattern(cfg: ModelConfig) -> str:
+    lp = cfg.layer_pattern
+    return "gemma3" if lp.startswith("local_global") else lp
+
+
+def _zamba2_shape(cfg: ModelConfig):
+    """(Mamba2 layers per period R, periods P, remainder layers)."""
+    every = cfg.hybrid_attn_every
+    return every - 1, cfg.n_layers // every, cfg.n_layers % every
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict:
@@ -76,15 +105,38 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict:
     if not cfg.tie_embeddings:
         params["lm_head"] = L.init_embedding(gen, cfg.vocab_size, d,
                                              device=device)
-    ones = torch.ones((n, d), dtype=torch.float32, device=device)
-    params["layers"] = {
-        "ln1": {"scale": ones.clone()},
-        "ln2": {"scale": ones.clone()},
-        "attn": attn.init_gqa(gen, cfg, device=device, lead=(n,)),
-        "ffn": (moe.init_moe(gen, cfg, device=device, lead=(n,))
-                if cfg.moe is not None else
-                L.init_swiglu(gen, d, cfg.d_ff, device=device, lead=(n,))),
-    }
+    ones = lambda *lead: {"scale": torch.ones((*lead, d),
+                                              dtype=torch.float32,
+                                              device=device)}
+    pat = _pattern(cfg)
+    if pat == "zamba2":
+        R, n_periods, rem = _zamba2_shape(cfg)
+
+        def mamba_layers(*lead):
+            return {"ln": ones(*lead),
+                    "mamba": mamba2.init_mamba2_block(gen, cfg, device=device,
+                                                      lead=lead)}
+        params["mamba_p"] = mamba_layers(n_periods, R)
+        if rem:
+            params["mamba_rem"] = mamba_layers(rem)
+        params["attn_shared"] = {
+            "ln1": ones(), "ln2": ones(),
+            "attn": attn.init_gqa(gen, cfg, device=device),
+            "ffn": L.init_swiglu(gen, d, cfg.d_ff, device=device)}
+    elif pat == "rwkv":
+        params["layers"] = {
+            "ln1": ones(n),
+            "block": rwkv6.init_rwkv_block(gen, cfg, device=device,
+                                           lead=(n,))}
+    else:
+        params["layers"] = {
+            "ln1": ones(n), "ln2": ones(n),
+            "attn": attn.init_gqa(gen, cfg, device=device, lead=(n,)),
+            "ffn": (moe.init_moe(gen, cfg, device=device, lead=(n,))
+                    if cfg.moe is not None else
+                    L.init_swiglu(gen, d, cfg.d_ff, device=device,
+                                  lead=(n,))),
+        }
     if cfg.frontend is not None:
         # the projector stub: pre-projected frontend embeddings at d_embed
         # mapped into the LM by one linear
@@ -105,8 +157,9 @@ def params_from_numpy(tree, device="cuda"):
 
 
 def serving_params(params) -> Dict:
-    """A copy of ``params`` whose layer matmul weights and biases are cast
-    to bf16 once, for serving.  The layers cast them at use anyway, so
+    """A copy of ``params`` whose layer matmul weights and biases
+    (``_MATMUL_LEAVES``, in every stack of ``_STACKS``) are cast to bf16
+    once, for serving.  The layers cast them at use anyway, so
     the values the forward sees are identical; the embedding table stays
     fp32 (the unembed is an fp32 product) and so do the norm scales and
     a MoE router.  Leaves already in bf16 are kept, not copied, so the
@@ -116,7 +169,9 @@ def serving_params(params) -> Dict:
             return {k: cast(v, k) for k, v in tree.items()}
         return tree.to(L.COMPUTE_DTYPE) if key in _MATMUL_LEAVES else tree
     out = dict(params)
-    out["layers"] = cast(params["layers"])
+    for key in _STACKS:
+        if key in params:
+            out[key] = cast(params[key])
     return out
 
 
@@ -137,16 +192,24 @@ def count_params(cfg: ModelConfig) -> int:
     check_supported(cfg)
     d, hd, n = cfg.d_model, cfg.resolved_head_dim, cfg.n_layers
     nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
-    per_layer = 2 * d + d * nq + 2 * d * nkv + nq * d
-    if cfg.moe is not None:
+    attention = 2 * d + d * nq + 2 * d * nkv + nq * d   # with its 2 norms
+    if cfg.qkv_bias:
+        attention += nq + 2 * nkv
+    pat = _pattern(cfg)
+    if pat == "zamba2":
+        R, n_periods, rem = _zamba2_shape(cfg)
+        layers = ((n_periods * R + rem) * (d + mamba2.block_params(cfg))
+                  + attention + 3 * d * cfg.d_ff)
+    elif pat == "rwkv":
+        layers = n * (d + rwkv6.block_params(cfg))
+    elif cfg.moe is not None:
         m = cfg.moe
-        per_layer += (d * m.n_experts + 3 * m.n_experts * d * m.d_expert_ff
+        layers = n * (attention + d * m.n_experts
+                      + 3 * m.n_experts * d * m.d_expert_ff
                       + 3 * d * m.d_expert_ff * m.n_shared_experts)
     else:
-        per_layer += 3 * d * cfg.d_ff
-    if cfg.qkv_bias:
-        per_layer += nq + 2 * nkv
-    total = cfg.vocab_size * d + d + n * per_layer
+        layers = n * (attention + 3 * d * cfg.d_ff)
+    total = cfg.vocab_size * d + d + layers
     if not cfg.tie_embeddings:
         total += cfg.vocab_size * d
     if cfg.frontend is not None:
@@ -199,12 +262,14 @@ def forward_seq(params, cfg: ModelConfig, tokens, extra_embeds=None,
                 remat: bool = False, encoder_frames=None,
                 last_only: bool = False, return_hidden: bool = False):
     """Full-sequence causal forward, no pages: tokens (B, T_text) ->
-    (logits (B, T, V) fp32, (k, v) each (L, B, T, Hkv, D), aux), aux the
-    MoE load-balance loss summed over layers (0 for a dense FFN).  The
-    reference's ``forward_seq`` for the uniform pattern; it is also the
-    plain end-to-end yardstick of the paged engine.
+    (logits (B, T, V) fp32, caches, aux), aux the MoE load-balance loss
+    summed over layers (0 without a MoE FFN).  The caches are the
+    reference's, sized to T: uniform (k, v) each (L, B, T, Hkv, D);
+    zamba2 ``_zamba2_forward_seq``'s six stacks; rwkv an ``RWKVState``
+    of (L, ...) stacks.  The uniform forward is also the plain
+    end-to-end yardstick of the paged engine.
 
-    ``remat`` recomputes each layer in the backward pass
+    ``remat`` recomputes each layer (a zamba2 period) in the backward pass
     (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of
     its scan body); ``last_only`` unembeds only the last position;
     ``return_hidden`` returns the final-normed hidden states (B, T, d) in
@@ -213,24 +278,37 @@ def forward_seq(params, cfg: ModelConfig, tokens, extra_embeds=None,
     ``encoder_frames`` is taken for the reference's signature and unused:
     no encoder-decoder config passes ``check_supported``.  With a MoE FFN
     a token's output depends on the other tokens of the call through
-    capacity."""
+    capacity.  A zamba2 forward on CUDA with no gradient runs the SSD
+    scan kernel in every Mamba2 layer (``models/mamba2.py``)."""
     check_supported(cfg)
     x, positions = _embed_inputs(params, cfg, tokens, extra_embeds)
-    use_moe = cfg.moe is not None
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    ks, vs = [], []
-    for lp in unstack_layers(params["layers"]):
-        if remat:
-            x, (k, v), aux = checkpoint(_uniform_layer_seq, lp, x, cfg,
-                                        positions, use_moe,
-                                        use_reentrant=False)
-        else:
-            x, (k, v), aux = _uniform_layer_seq(lp, x, cfg, positions,
-                                                use_moe)
-        aux_total = aux_total + aux
-        ks.append(k)
-        vs.append(v)
-    caches = (torch.stack(ks), torch.stack(vs))
+    pat = _pattern(cfg)
+    if pat == "zamba2":
+        x, caches = _zamba2_forward_seq(params, cfg, x, positions, remat)
+    elif pat == "rwkv":
+        states = []
+        for lp in unstack_layers(params["layers"]):
+            x, st = (checkpoint(_rwkv_layer_seq, lp, x, cfg,
+                                use_reentrant=False)
+                     if remat else _rwkv_layer_seq(lp, x, cfg))
+            states.append(st)
+        caches = rwkv6.RWKVState(*(torch.stack(a) for a in zip(*states)))
+    else:
+        use_moe = cfg.moe is not None
+        ks, vs = [], []
+        for lp in unstack_layers(params["layers"]):
+            if remat:
+                x, (k, v), aux = checkpoint(_uniform_layer_seq, lp, x, cfg,
+                                            positions, use_moe,
+                                            use_reentrant=False)
+            else:
+                x, (k, v), aux = _uniform_layer_seq(lp, x, cfg, positions,
+                                                    use_moe)
+            aux_total = aux_total + aux
+            ks.append(k)
+            vs.append(v)
+        caches = (torch.stack(ks), torch.stack(vs))
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if return_hidden:
         return x, caches, aux_total
@@ -238,6 +316,74 @@ def forward_seq(params, cfg: ModelConfig, tokens, extra_embeds=None,
         x = x[:, -1:]
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     return L.unembed(head, x), caches, aux_total
+
+
+def _rwkv_layer_seq(lp, x, cfg: ModelConfig):
+    """One RWKV6 layer in sequence mode from the zero state; returns
+    (x, ``RWKVState``)."""
+    h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    st = rwkv6.init_rwkv_state(cfg, x.shape[0], dtype=x.dtype,
+                               device=x.device)
+    h, st = rwkv6.rwkv_block_forward(lp["block"], h, cfg, st)
+    return x + h, st
+
+
+def _mamba_layer_seq(lp, x, cfg: ModelConfig):
+    """One Mamba2 layer in sequence mode from a fresh state (so a no-grad
+    CUDA forward takes the scan kernel); returns (x, ``MambaState``)."""
+    h = L.rmsnorm(lp["ln"], x, cfg.norm_eps)
+    h, st = mamba2.mamba2_block_forward(lp["mamba"], h, cfg)
+    return x + h, st
+
+
+def _shared_block_seq(ap, x, cfg: ModelConfig, positions):
+    """zamba2's shared attention block; returns (x, (k, v))."""
+    h = L.rmsnorm(ap["ln1"], x, cfg.norm_eps)
+    a, kv = attn.gqa_forward(ap["attn"], h, cfg, positions)
+    x = x + a
+    h = L.rmsnorm(ap["ln2"], x, cfg.norm_eps)
+    return x + L.swiglu(ap["ffn"], h), kv
+
+
+def _mamba_stack_seq(layers, x, cfg: ModelConfig):
+    """The Mamba2 layers of a stack (leaves (n, ...)) in turn; returns
+    (x, conv (n, B, K-1, C), S (n, B, H, N, Pd))."""
+    convs, ssms = [], []
+    for lp in unstack_layers(layers):
+        x, st = _mamba_layer_seq(lp, x, cfg)
+        convs.append(st.conv)
+        ssms.append(st.S)
+    return x, torch.stack(convs), torch.stack(ssms)
+
+
+def _zamba2_period_seq(lp, ap, x, cfg: ModelConfig, positions):
+    """One period: R Mamba2 layers (``lp`` leaves (R, ...)), then the
+    shared block ``ap``.  Returns (x, (conv (R, ...), S (R, ...), k, v))."""
+    x, conv, ssm = _mamba_stack_seq(lp, x, cfg)
+    x, (k, v) = _shared_block_seq(ap, x, cfg, positions)
+    return x, (conv, ssm, k, v)
+
+
+def _zamba2_forward_seq(params, cfg: ModelConfig, x, positions,
+                        remat: bool = False):
+    """The Mamba2 periods with their shared attention block, then the
+    remainder layers (not rematerialised, as in the reference).  Returns
+    (x, (conv_p (P, R, B, K-1, C), ssm_p (P, R, B, H, N, Pd), conv_rem
+    (rem, ...) or None, ssm_rem or None, k (P, B, T, Hkv, D), v))."""
+    ap = params["attn_shared"]
+    outs = []
+    for lp in unstack_layers(params["mamba_p"]):
+        if remat:
+            x, out = checkpoint(_zamba2_period_seq, lp, ap, x, cfg,
+                                positions, use_reentrant=False)
+        else:
+            x, out = _zamba2_period_seq(lp, ap, x, cfg, positions)
+        outs.append(out)
+    conv_p, ssm_p, ak, av = (torch.stack(a) for a in zip(*outs))
+    conv_rem = ssm_rem = None
+    if "mamba_rem" in params:
+        x, conv_rem, ssm_rem = _mamba_stack_seq(params["mamba_rem"], x, cfg)
+    return x, (conv_p, ssm_p, conv_rem, ssm_rem, ak, av)
 
 
 # ---------------------------------------------------------------------------
@@ -249,16 +395,56 @@ class KVCaches(NamedTuple):
     v: torch.Tensor
 
 
+class Zamba2Caches(NamedTuple):
+    conv_p: torch.Tensor       # (P, R, B, K-1, C)
+    ssm_p: torch.Tensor        # (P, R, B, H, N, Pd) fp32
+    conv_rem: torch.Tensor     # (max(rem, 1), B, K-1, C)
+    ssm_rem: torch.Tensor      # (max(rem, 1), B, H, N, Pd) fp32
+    attn_k: torch.Tensor       # (P, B, S, Hkv, D)
+    attn_v: torch.Tensor
+
+
+class RWKVCaches(NamedTuple):
+    shift_tm: torch.Tensor     # (L, B, d)
+    shift_cm: torch.Tensor     # (L, B, d)
+    S: torch.Tensor            # (L, B, H, N, N) fp32
+
+
 def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
-                kv_dtype=None, device="cuda") -> KVCaches:
-    """Zero decode caches; ``kv_dtype`` overrides the bf16 KV storage
-    dtype (``torch.int8`` for the quantised cache)."""
+                kv_dtype=None, device="cuda"):
+    """Zero decode caches of the config's pattern; ``kv_dtype`` overrides
+    the bf16 storage of attention K/V (``torch.int8`` for the quantised
+    cache); recurrent states keep their own dtypes (bf16 windows and
+    shifts, fp32 S)."""
     check_supported(cfg)
     dt = kv_dtype if kv_dtype is not None else L.COMPUTE_DTYPE
-    shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
-    return KVCaches(k=torch.zeros(shape, dtype=dt, device=device),
-                    v=torch.zeros(shape, dtype=dt, device=device))
+    kv_shape = (batch, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    zeros = lambda shape, dtype: torch.zeros(shape, dtype=dtype,
+                                             device=device)
+    pat = _pattern(cfg)
+    if pat == "zamba2":
+        R, P, rem = _zamba2_shape(cfg)
+        s, _, H, conv_ch = mamba2._dims(cfg)
+        conv = (batch, s.conv_kernel - 1, conv_ch)
+        ssm = (batch, H, s.state_dim, s.head_dim)
+        return Zamba2Caches(
+            conv_p=zeros((P, R, *conv), L.COMPUTE_DTYPE),
+            ssm_p=zeros((P, R, *ssm), torch.float32),
+            conv_rem=zeros((max(rem, 1), *conv), L.COMPUTE_DTYPE),
+            ssm_rem=zeros((max(rem, 1), *ssm), torch.float32),
+            attn_k=zeros((P, *kv_shape), dt),
+            attn_v=zeros((P, *kv_shape), dt))
+    if pat == "rwkv":
+        N = cfg.rwkv.head_dim
+        return RWKVCaches(
+            shift_tm=zeros((cfg.n_layers, batch, cfg.d_model),
+                           L.COMPUTE_DTYPE),
+            shift_cm=zeros((cfg.n_layers, batch, cfg.d_model),
+                           L.COMPUTE_DTYPE),
+            S=zeros((cfg.n_layers, batch, cfg.n_heads, N, N),
+                    torch.float32))
+    return KVCaches(k=zeros((cfg.n_layers, *kv_shape), dt),
+                    v=zeros((cfg.n_layers, *kv_shape), dt))
 
 
 def _uniform_layer_decode(lp, x, cfg: ModelConfig, cache, pos,
@@ -277,21 +463,80 @@ def _uniform_layer_decode(lp, x, cfg: ModelConfig, cache, pos,
     return x + f, (ck, cv)
 
 
-def decode_step(params, cfg: ModelConfig, caches: KVCaches, token, pos):
-    """One decode step against contiguous caches.  token: (B,) int; pos:
-    an int or 0-d tensor, the tokens already cached.  Returns (logits
-    (B, V) fp32, new ``KVCaches``); ``caches`` is left unchanged."""
+def _mamba_stack_decode(layers, x, cfg: ModelConfig, conv, S):
+    """The decode step through a Mamba2 stack (leaves (n, ...)) against
+    its states conv (n, B, K-1, C) and S (n, B, H, N, Pd); returns (x,
+    new conv, new S)."""
+    convs, ssms = [], []
+    for lp, ci, si in zip(unstack_layers(layers), conv, S):
+        h = L.rmsnorm(lp["ln"], x, cfg.norm_eps)
+        h, st = mamba2.mamba2_block_decode(lp["mamba"], h, cfg,
+                                           mamba2.MambaState(ci, si))
+        x = x + h
+        convs.append(st.conv)
+        ssms.append(st.S)
+    return x, torch.stack(convs), torch.stack(ssms)
+
+
+def _zamba2_decode(params, cfg: ModelConfig, caches: Zamba2Caches, x, pos):
+    ap = params["attn_shared"]
+    convs_p, ssms_p, ks, vs = [], [], [], []
+    for lp, conv, S, ak, av in zip(unstack_layers(params["mamba_p"]),
+                                   caches.conv_p, caches.ssm_p,
+                                   caches.attn_k, caches.attn_v):
+        x, conv, S = _mamba_stack_decode(lp, x, cfg, conv, S)
+        h = L.rmsnorm(ap["ln1"], x, cfg.norm_eps)
+        a, ak, av = attn.gqa_decode(ap["attn"], h, cfg, ak, av, pos)
+        x = x + a
+        h = L.rmsnorm(ap["ln2"], x, cfg.norm_eps)
+        x = x + L.swiglu(ap["ffn"], h)
+        convs_p.append(conv)
+        ssms_p.append(S)
+        ks.append(ak)
+        vs.append(av)
+    conv_rem, ssm_rem = caches.conv_rem, caches.ssm_rem
+    if "mamba_rem" in params:
+        x, conv_rem, ssm_rem = _mamba_stack_decode(
+            params["mamba_rem"], x, cfg, conv_rem, ssm_rem)
+    return x, Zamba2Caches(torch.stack(convs_p), torch.stack(ssms_p),
+                           conv_rem, ssm_rem, torch.stack(ks),
+                           torch.stack(vs))
+
+
+def _rwkv_decode(params, cfg: ModelConfig, caches: RWKVCaches, x):
+    states = []
+    for lp, stm, scm, S in zip(unstack_layers(params["layers"]),
+                               caches.shift_tm, caches.shift_cm, caches.S):
+        h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+        h, st = rwkv6.rwkv_block_decode(lp["block"], h, cfg,
+                                        rwkv6.RWKVState(stm, scm, S))
+        x = x + h
+        states.append(st)
+    return x, RWKVCaches(*(torch.stack(a) for a in zip(*states)))
+
+
+def decode_step(params, cfg: ModelConfig, caches, token, pos):
+    """One decode step against contiguous caches (``init_caches``' type
+    for the config).  token: (B,) int; pos: an int or 0-d tensor, the
+    tokens already cached.  Returns (logits (B, V) fp32, new caches);
+    ``caches`` is left unchanged."""
     check_supported(cfg)
     x = L.embed(params["embed"], token[:, None])           # (B, 1, d)
-    use_moe = cfg.moe is not None
-    ks, vs = [], []
-    for lp, ck, cv in zip(unstack_layers(params["layers"]), caches.k,
-                          caches.v):
-        x, (ck, cv) = _uniform_layer_decode(lp, x, cfg, (ck, cv), pos,
-                                            use_moe)
-        ks.append(ck)
-        vs.append(cv)
+    pat = _pattern(cfg)
+    if pat == "zamba2":
+        x, new_caches = _zamba2_decode(params, cfg, caches, x, pos)
+    elif pat == "rwkv":
+        x, new_caches = _rwkv_decode(params, cfg, caches, x)
+    else:
+        use_moe = cfg.moe is not None
+        ks, vs = [], []
+        for lp, ck, cv in zip(unstack_layers(params["layers"]), caches.k,
+                              caches.v):
+            x, (ck, cv) = _uniform_layer_decode(lp, x, cfg, (ck, cv), pos,
+                                                use_moe)
+            ks.append(ck)
+            vs.append(cv)
+        new_caches = KVCaches(torch.stack(ks), torch.stack(vs))
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return L.unembed(head, x[:, 0]), KVCaches(torch.stack(ks),
-                                               torch.stack(vs))
+    return L.unembed(head, x[:, 0]), new_caches

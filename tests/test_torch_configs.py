@@ -7,7 +7,9 @@ tolerances of tests/test_torch_model.py).  llava's vision tower is a stub
 in both packages: ``forward_seq`` projects its embeddings by ``mm_proj``
 and prepends them, and real-mode serving takes text tokens only, as the
 reference's launcher serves it.  olmoe-1b-7b's row is held in
-tests/test_torch_moe_serving.py."""
+tests/test_torch_moe_serving.py; the rows of zamba2-7b and rwkv6-1.6b are
+held here field for field with their parameter counts, and their models in
+tests/test_torch_ssm.py."""
 import dataclasses
 
 import jax
@@ -39,7 +41,7 @@ def model(request):
     return smoke_models(request.param)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["zamba2-7b", "rwkv6-1.6b"])
 @pytest.mark.parametrize("getter", ["get_config", "get_smoke_config"])
 def test_config_rows_match_reference(arch, getter):
     want = getattr(jax_configs, getter)(arch)

@@ -26,6 +26,7 @@ from repro_torch.kernels import block_copy as bc
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gla_scan as gla
 from repro_torch.kernels import ops, ref
+from repro_torch.models.gla import gla_scan_ref
 from torch_threads import one_torch_thread  # noqa: E402,F401
 
 JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -343,7 +344,7 @@ def test_gla_scan_scalar_matches_pallas_and_sequential_scan(B, H, T, N, P,
     np.testing.assert_allclose(s.numpy(), np.asarray(want_s), **GLA_S_TOL)
     # the sequential oracle, and its port against the reference's
     lw_n = np.broadcast_to(logw[..., None], (B, H, T, N))
-    seq_y, seq_s = ref.gla_scan_ref(tq, tk, tv, torch.from_numpy(lw_n.copy()))
+    seq_y, seq_s = gla_scan_ref(tq, tk, tv, torch.from_numpy(lw_n.copy()))
     np.testing.assert_allclose(y.float().numpy(), seq_y.float().numpy(),
                                **GLA_Y_TOL[dtype])
     np.testing.assert_allclose(s.numpy(), seq_s.numpy(), **GLA_S_TOL)
@@ -371,7 +372,7 @@ def test_gla_scan_ref_rwkv_mode_matches_reference():
     want_y, want_s = jax_gla_scan_ref(
         *(jnp.asarray(x) for x in (q, k, v, logw)), u=jnp.asarray(u),
         mode="rwkv", initial_state=jnp.asarray(s0))
-    y, s = ref.gla_scan_ref(*(torch.from_numpy(x) for x in (q, k, v, logw)),
+    y, s = gla_scan_ref(*(torch.from_numpy(x) for x in (q, k, v, logw)),
                             u=torch.from_numpy(u), mode="rwkv",
                             initial_state=torch.from_numpy(s0))
     np.testing.assert_allclose(y.numpy(), np.asarray(want_y), atol=1e-5,

@@ -69,7 +69,8 @@ def test_config_matches_reference(getter):
     got = getattr(configs, getter)(ARCH)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert configs.list_archs() == [ARCH, "llama3.2-3b", "mistral-nemo-12b",
-                                    "olmoe-1b-7b", "llava-next-mistral-7b"]
+                                    "olmoe-1b-7b", "llava-next-mistral-7b",
+                                    "zamba2-7b", "rwkv6-1.6b"]
     assert count_params_analytic(got) == jax_count(want)
 
 

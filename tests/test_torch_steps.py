@@ -35,7 +35,10 @@ from test_torch_model import KV_TOL, LOGIT_TOL, assert_close_bf16, \
     smoke_models
 from torch_threads import one_torch_thread  # noqa: E402,F401
 
-ARCHS = configs.list_archs()
+# the uniform decoders; the SSM and hybrid families (zamba2, rwkv) are
+# held in tests/test_torch_ssm.py and tests/test_torch_ssm_train.py
+ARCHS = [a for a in configs.list_archs()
+         if configs.get_config(a).layer_pattern == "uniform"]
 # a greedy token may differ only where the reference's logits hold the
 # port's token this close to their maximum (bf16 rounding can flip a
 # near-tie, not a clear winner)

@@ -43,7 +43,10 @@ from repro_torch.train import optimizer as opt
 from test_torch_model import smoke_models
 from torch_threads import one_torch_thread  # noqa: E402,F401
 
-ARCHS = configs.list_archs()
+# the uniform decoders; the SSM and hybrid families (zamba2, rwkv) are
+# held in tests/test_torch_ssm.py and tests/test_torch_ssm_train.py
+ARCHS = [a for a in configs.list_archs()
+         if configs.get_config(a).layer_pattern == "uniform"]
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 
 # The loss is a mean of fp32 log-probabilities over bf16 hidden states:
