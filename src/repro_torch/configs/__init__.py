@@ -1,10 +1,12 @@
 """Architecture config registry of the port.
 
-Holds the architectures the port runs: the uniform GQA decoders (dense,
-MoE, llava's language model), which it trains and serves, and the SSM
-and hybrid families (rwkv6-1.6b, zamba2-7b), which it trains and runs
-through the contiguous-cache step functions but does not serve in real
-mode (no paged path, as in the reference).  ``get_config(arch_id)``
+Holds every architecture of the reference's registry: the uniform GQA
+decoders (dense, MoE, llava's language model), which the port trains and
+serves, and the other families (the SSM and hybrid rwkv6-1.6b and
+zamba2-7b, gemma3-12b's local/global pattern, deepseek-v2-236b's MLA with
+its skip_first MoE, whisper-large-v3's encoder-decoder), which it trains
+and runs through the contiguous-cache step functions but does not serve
+in real mode (no paged path, as in the reference).  ``get_config(arch_id)``
 returns the full published config; ``get_smoke_config(arch_id)`` the
 reduced same-family variant the CPU tests use.
 """
@@ -34,6 +36,9 @@ _REGISTRY: Dict[str, str] = {
     "llava-next-mistral-7b": "repro_torch.configs.llava_next_mistral_7b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
     "rwkv6-1.6b": "repro_torch.configs.rwkv6_1p6b",
+    "gemma3-12b": "repro_torch.configs.gemma3_12b",
+    "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
+    "whisper-large-v3": "repro_torch.configs.whisper_large_v3",
 }
 
 

@@ -73,9 +73,10 @@ import random
 def _build_real_bundle(arch: str, seed: int, device: str = "cuda"):
     """The model bundle real mode serves: on ``cuda`` the arch's full
     config with random weights from ``seed`` made on the card, on ``cpu``
-    its reduced config; the matmul weights cast to bf16 once
-    (``serving_params``).  Raises ``SystemExit`` where the arch is not
-    served by the paged path or no GPU is there for ``cuda``."""
+    its reduced config; the matmul weights cast to bf16 as they are
+    drawn (``init_params(serving=True)``).  Raises ``SystemExit`` where
+    the arch is not served by the paged path or no GPU is there for
+    ``cuda``."""
     import torch
 
     from repro_torch.configs import get_config, get_smoke_config
@@ -97,10 +98,11 @@ def _build_real_bundle(arch: str, seed: int, device: str = "cuda"):
         T.check_supported(cfg)
     except NotImplementedError as e:
         raise SystemExit(str(e)) from None
-    # the serving copy (matmul weights in bf16) and no fp32 tree beside
-    # it: each runner's ``serving_params`` then keeps these tensors, and
-    # olmoe-1b-7b's experts take 13.4 GB where the fp32 tree took 27.7
-    params = T.serving_params(T.init_params(cfg, seed=seed, device=device))
+    # the serving copy (matmul weights in bf16, each cast as it is
+    # drawn) and no fp32 tree: each runner's ``serving_params`` then keeps
+    # these tensors, and olmoe-1b-7b's experts take 13.4 GB where the
+    # fp32 tree took 27.7
+    params = T.init_params(cfg, seed=seed, device=device, serving=True)
     return {"cfg": cfg, "params": params}
 
 

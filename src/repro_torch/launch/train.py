@@ -7,7 +7,8 @@ with the same flags, output lines and synthetic data, and one more flag,
     device)``), and exits non-zero where no GPU is there (no CPU
     fallback) or where the fp32 training state (16 B a parameter:
     parameters, gradients and two AdamW moments) exceeds the card's
-    memory, before allocating (zamba2-7b: 5.7 B parameters);
+    memory, before allocating (zamba2-7b: 5.7 B parameters, gemma3-12b
+    12.8 B, deepseek-v2-236b 235.6 B);
   * ``--device cpu`` trains the arch's reduced config, as the
     reference's launcher does on the CPU.
 
@@ -23,7 +24,8 @@ launcher's choice, run eagerly (no CUDA graph yet):
 
 Each step's batch is (batch, seq + 1) uniform tokens from a
 ``torch.Generator`` on the device seeded with ``--seed``: tokens the
-first ``seq``, labels the last.  ``--checkpoint`` writes the final
+first ``seq``, labels the last; an encoder-decoder (whisper) also gets
+``encoder_frames`` of 0.02, as the reference's.  ``--checkpoint`` writes the final
 parameters in the reference's ``.npz`` format (6.2 GB for qwen2-1.5b at
 full width).
 """
@@ -90,6 +92,10 @@ def main(argv=None) -> None:
             b["extra_embeds"] = torch.full(
                 (args.batch, cfg.frontend.n_tokens, cfg.frontend.d_embed),
                 0.02, device=device)
+        if cfg.encoder_decoder:
+            b["encoder_frames"] = torch.full(
+                (args.batch, cfg.n_encoder_tokens, cfg.d_model), 0.02,
+                device=device)
         return b
 
     t0 = time.time()

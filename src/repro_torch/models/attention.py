@@ -1,9 +1,12 @@
-"""GQA attention: sequence mode (train / prefill) and decode against a
-contiguous KV cache.
+"""Attention variants: GQA (full / sliding-window / cross) and DeepSeek
+MLA, in sequence mode (train / prefill) and decode against a contiguous
+cache.
 
-Counterpart of ``repro/models/attention.py``'s GQA half (``init_gqa``,
+Counterpart of ``repro/models/attention.py`` (``init_gqa``,
 ``_project_qkv``, ``_sdpa``, ``_sdpa_chunked``, ``causal_mask``,
-``gqa_forward``, ``gqa_decode``).  Attention here is plain tensor code,
+``gqa_forward``, ``gqa_decode``; whisper's cross attention; MLA's
+``MLACache``, ``init_mla``, ``mla_forward`` and the absorbed-weight
+``mla_decode``).  Attention here is plain tensor code,
 as in the reference, which computes it outside any Pallas kernel; the
 paged decode path's kernel is ``kernels/paged_attention.py``.  The
 reference's sharding constraints (``constrain_kv_seq``) are no-ops on one
@@ -12,29 +15,27 @@ device and are left out.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import _dense_init, apply_rope
+from repro_torch.models.layers import _dense_init, apply_rope, recomputed
 
 NEG_INF = -1e30
 
 
-def init_gqa(gen: torch.Generator, cfg: ModelConfig, device=None, lead=()):
+def init_gqa(gen: torch.Generator, cfg: ModelConfig, device=None, lead=(),
+             dtype=torch.float32):
     d, hd = cfg.d_model, cfg.resolved_head_dim
     nq, nkv = cfg.n_heads, cfg.n_kv_heads
-    p = {
-        "wq": _dense_init(gen, (*lead, d, nq * hd), device=device),
-        "wk": _dense_init(gen, (*lead, d, nkv * hd), device=device),
-        "wv": _dense_init(gen, (*lead, d, nkv * hd), device=device),
-        "wo": _dense_init(gen, (*lead, nq * hd, d), device=device),
-    }
+    p = {name: _dense_init(gen, (*lead, *shape), device=device, dtype=dtype)
+         for name, shape in (("wq", (d, nq * hd)), ("wk", (d, nkv * hd)),
+                             ("wv", (d, nkv * hd)), ("wo", (nq * hd, d)))}
     if cfg.qkv_bias:
         for name, width in (("bq", nq * hd), ("bk", nkv * hd),
                             ("bv", nkv * hd)):
-            p[name] = torch.zeros((*lead, width), dtype=torch.float32,
+            p[name] = torch.zeros((*lead, width), dtype=dtype,
                                   device=device)
     return p
 
@@ -188,3 +189,165 @@ def gqa_decode(p, x, cfg: ModelConfig, cache_k, cache_v, pos,
     out = _sdpa(q, k_r, v_r, valid[None, None, None, :], scale)
     out = out.reshape(B, 1, -1) @ p["wo"].to(x.dtype)
     return out, cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# Whisper's cross attention (no RoPE; K/V projected from the encoder)
+# ---------------------------------------------------------------------------
+
+def init_cross_attention(gen: torch.Generator, cfg: ModelConfig, device=None,
+                         lead=(), dtype=torch.float32):
+    return init_gqa(gen, cfg, device=device, lead=lead, dtype=dtype)
+
+
+def cross_attention(p, x, enc_kv, cfg: ModelConfig, recompute: bool = False):
+    """x: (B, T, d); enc_kv: (k, v) each (B, S_enc, Hkv, D); ``recompute``:
+    the (B, H, T, S_enc) probabilities, as ``layers.recomputed``'s
+    ``on``."""
+    B, T, _ = x.shape
+    hd = cfg.resolved_head_dim
+    dt = x.dtype
+    q = (x @ p["wq"].to(dt)).reshape(B, T, cfg.n_heads, hd)
+    k, v = enc_kv
+    out = recomputed(recompute, _sdpa, q, k, v, None, 1.0 / math.sqrt(hd))
+    return out.reshape(B, T, -1) @ p["wo"].to(dt)
+
+
+def project_cross_kv(p, enc_out, cfg: ModelConfig):
+    """The encoder's output (B, S_enc, d) as one decoder layer's cross
+    K and V, each (B, S_enc, Hkv, D)."""
+    B, S, _ = enc_out.shape
+    hd = cfg.resolved_head_dim
+    dt = enc_out.dtype
+    k = (enc_out @ p["wk"].to(dt)).reshape(B, S, cfg.n_kv_heads, hd)
+    v = (enc_out @ p["wv"].to(dt)).reshape(B, S, cfg.n_kv_heads, hd)
+    return k, v
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek-V2 MLA (Multi-head Latent Attention)
+# ---------------------------------------------------------------------------
+
+class MLACache(NamedTuple):
+    latent: torch.Tensor   # (B, S, kv_lora_rank)
+    k_rope: torch.Tensor   # (B, S, rope_head_dim)
+
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig, device=None, lead=(),
+             dtype=torch.float32):
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    qd = m.nope_head_dim + m.rope_head_dim
+    p = {name: _dense_init(gen, (*lead, *shape), device=device, dtype=dtype)
+         for name, shape in (
+             ("w_dq", (d, m.q_lora_rank)),
+             ("w_uq", (m.q_lora_rank, H * qd)),
+             ("w_dkv", (d, m.kv_lora_rank)),
+             ("w_krope", (d, m.rope_head_dim)),
+             ("w_uk", (m.kv_lora_rank, H * m.nope_head_dim)),
+             ("w_uv", (m.kv_lora_rank, H * m.v_head_dim)),
+             ("wo", (H * m.v_head_dim, d)))}
+    p["q_norm"] = torch.ones((*lead, m.q_lora_rank), dtype=torch.float32,
+                             device=device)
+    p["kv_norm"] = torch.ones((*lead, m.kv_lora_rank), dtype=torch.float32,
+                              device=device)
+    return p
+
+
+def _rms(x, scale, eps: float = 1e-5):
+    """MLA's latent norms: RMSNorm in fp32 at a fixed eps of 1e-5 (not
+    ``cfg.norm_eps``), as the reference."""
+    xf = x.float()
+    return (xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + eps)
+            * scale).to(x.dtype)
+
+
+def _mla_queries(p, x, cfg: ModelConfig, positions):
+    """(q_nope (B, T, H, dn), q_rope (B, T, H, dr) after RoPE)."""
+    m = cfg.mla
+    B, T, _ = x.shape
+    dt = x.dtype
+    cq = _rms(x @ p["w_dq"].to(dt), p["q_norm"])
+    q = (cq @ p["w_uq"].to(dt)).reshape(B, T, cfg.n_heads,
+                                        m.nope_head_dim + m.rope_head_dim)
+    q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_latents(p, x, cfg: ModelConfig, positions):
+    """(latent (B, T, r) normed, k_rope (B, T, dr) after RoPE): what the
+    cache holds per token."""
+    dt = x.dtype
+    latent = _rms(x @ p["w_dkv"].to(dt), p["kv_norm"])
+    k_rope = apply_rope(x @ p["w_krope"].to(dt), positions, cfg.rope_theta)
+    return latent, k_rope
+
+
+def mla_forward(p, x, cfg: ModelConfig, positions):
+    """Sequence mode: K and V expanded from the latent per head, the
+    shared RoPE key broadcast to every head, V zero-padded to the q/k
+    head dim so that the shared SDPA applies (``_sdpa_chunked`` above
+    ``CHUNK_THRESHOLD``).  Returns (out, ``MLACache``)."""
+    m = cfg.mla
+    B, T, _ = x.shape
+    H = cfg.n_heads
+    dt = x.dtype
+    q_nope, q_rope = _mla_queries(p, x, cfg, positions)
+    latent, k_rope = _mla_latents(p, x, cfg, positions)
+    k_nope = (latent @ p["w_uk"].to(dt)).reshape(B, T, H, m.nope_head_dim)
+    v = (latent @ p["w_uv"].to(dt)).reshape(B, T, H, m.v_head_dim)
+    qd = m.nope_head_dim + m.rope_head_dim
+    scale = 1.0 / math.sqrt(qd)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, T, H, m.rope_head_dim)], dim=-1)
+    v_pad = (torch.nn.functional.pad(v, (0, qd - m.v_head_dim))
+             if m.v_head_dim < qd else v)
+    if T > CHUNK_THRESHOLD:
+        out = _sdpa_chunked(q_full, k_full, v_pad, scale)
+    else:
+        out = _sdpa(q_full, k_full, v_pad,
+                    causal_mask(T, T, device=x.device), scale)
+    out = out[..., :m.v_head_dim].reshape(B, T, -1) @ p["wo"].to(dt)
+    return out, MLACache(latent=latent, k_rope=k_rope)
+
+
+def mla_decode(p, x, cfg: ModelConfig, cache: MLACache, pos):
+    """Absorbed-weight decode of one token, x (B, 1, d), against the
+    latent cache: ``w_uk`` folded into the query (q_abs (B, H, r), a bf16
+    product) and ``w_uv`` applied after the weighted sum, so the scores
+    and the values read the (B, S, r) latents directly.  The three
+    fp32-accumulated einsums take their bf16 operands upcast (exact) and
+    keep the fp32 result, the reference's ``preferred_element_type``.
+    Returns (out, new ``MLACache``), the input cache left unchanged."""
+    m = cfg.mla
+    B = x.shape[0]
+    H = cfg.n_heads
+    dt = x.dtype
+    S = cache.latent.shape[1]
+    pos = torch.as_tensor(pos, device=x.device)
+    positions = pos.reshape(1, 1).expand(B, 1)
+    q_nope, q_rope = _mla_queries(p, x, cfg, positions)
+    latent_t, k_rope_t = _mla_latents(p, x, cfg, positions)
+    # dynamic_update_slice clamps the start so that the row fits
+    index = torch.clamp(pos, max=S - 1).reshape(1)
+    latent = cache.latent.index_copy(1, index, latent_t.to(
+        cache.latent.dtype))
+    k_rope = cache.k_rope.index_copy(1, index, k_rope_t.to(
+        cache.k_rope.dtype))
+    w_uk = p["w_uk"].to(dt).reshape(m.kv_lora_rank, H, m.nope_head_dim)
+    q_abs = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], w_uk)
+    scale = 1.0 / math.sqrt(m.nope_head_dim + m.rope_head_dim)
+    logits = (torch.einsum("bhr,bsr->bhs", q_abs.float(), latent.float())
+              + torch.einsum("bhd,bsd->bhs", q_rope[:, 0].float(),
+                             k_rope.float())) * scale
+    valid = (torch.arange(S, device=x.device) <= pos)[None, None, :]
+    logits = torch.where(valid, logits,
+                         torch.full((), NEG_INF, device=x.device))
+    probs = torch.softmax(logits, dim=-1)
+    ctx = torch.einsum("bhs,bsr->bhr", probs.to(latent.dtype).float(),
+                       latent.float())
+    w_uv = p["w_uv"].to(dt).reshape(m.kv_lora_rank, H, m.v_head_dim)
+    out = torch.einsum("bhr,rhd->bhd", ctx.to(dt), w_uv)
+    out = out.reshape(B, 1, -1) @ p["wo"].to(dt)
+    return out, MLACache(latent=latent, k_rope=k_rope)

@@ -14,13 +14,13 @@ Which scan the sequence forward runs (``ssd_scan``):
     ``kernels/ops.py::gla_scan_scalar`` (``csrc/gla_scan.cu``), T padded
     with k = 0 and logw = 0 to a multiple of the chunk, which leaves the
     state exact;
-  * where a gradient is needed, or on the CPU: ``models/gla.py::
-    gla_chunked`` (scalar decay) under autograd, as the reference trains
-    through its jnp function (no kernel has a backward);
-  * a given state on CUDA with no gradient needed raises
-    ``NotImplementedError``: the kernel takes no initial state, and no
-    caller passes one (``transformer.forward_seq`` starts every layer
-    fresh).
+  * where a gradient is needed, where a state is given, or on the CPU:
+    ``models/gla.py::gla_chunked`` (scalar decay; under autograd where a
+    gradient is needed), as the reference computes every scan through
+    its jnp function.  The kernel has no backward and takes no initial
+    state, so it is launched no time on these routes
+    (``transformer.forward_seq`` starts every layer fresh, so its no-grad
+    forward on CUDA takes the kernel).
 A kernel that fails to build or launch raises (``kernels/gla_scan.py``);
 nothing falls back to the plain scan.  Decode is the O(1) state update.
 """
@@ -166,12 +166,7 @@ def ssd_scan(q, k, v, logw, cfg: ModelConfig,
     returns (y (B, H, T, P), S (B, H, N, P) fp32)."""
     need_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v, logw))
-    if q.is_cuda and not need_grad:
-        if state is not None:
-            raise NotImplementedError(
-                "mamba2: the CUDA scan kernel takes no initial state; a "
-                "no-grad sequence forward on CUDA must start fresh "
-                "(state=None)")
+    if q.is_cuda and not need_grad and state is None:
         return ssd_scan_kernel(q, k, v, logw, cfg.ssm.chunk_size)
     T = q.shape[2]
     return gla_chunked(q, k, v, logw, mode="mamba",
@@ -196,7 +191,7 @@ def mamba2_block_forward(p, x, cfg: ModelConfig,
                          ) -> Tuple[torch.Tensor, MambaState]:
     """Sequence mode.  x: (B, T, d).  ``state=None`` starts from the zero
     state (``init_mamba_state``) and lets a no-grad CUDA forward run the
-    scan kernel."""
+    scan kernel; from a given state the scan is ``gla_chunked``."""
     s, d_inner, H, conv_ch = _dims(cfg)
     B_, T, d = x.shape
     proj = x @ p["w_in"].to(x.dtype)

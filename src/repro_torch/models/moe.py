@@ -30,21 +30,26 @@ from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.models import layers as L
 
 
-def init_moe(gen: torch.Generator, cfg: ModelConfig, device=None, lead=()):
+def init_moe(gen: torch.Generator, cfg: ModelConfig, device=None, lead=(),
+             dtype=torch.float32):
     """The reference's ``init_moe`` shapes and scales (router N(0, 0.02^2),
-    experts N(0, 1/fan_in)); ``lead`` is the stacked layer axis."""
+    experts N(0, 1/fan_in)); ``lead`` is the stacked layer axis, ``dtype``
+    the experts' storage (the router stays fp32)."""
     m: MoEConfig = cfg.moe
     d, f, E = cfg.d_model, m.d_expert_ff, m.n_experts
     p = {
         "router": L._dense_init(gen, (*lead, d, E), scale=0.02,
                                 device=device),
-        "w_gate": L._dense_init(gen, (*lead, E, d, f), device=device),
-        "w_up": L._dense_init(gen, (*lead, E, d, f), device=device),
-        "w_down": L._dense_init(gen, (*lead, E, f, d), device=device),
+        "w_gate": L._dense_init(gen, (*lead, E, d, f), device=device,
+                                dtype=dtype),
+        "w_up": L._dense_init(gen, (*lead, E, d, f), device=device,
+                              dtype=dtype),
+        "w_down": L._dense_init(gen, (*lead, E, f, d), device=device,
+                                dtype=dtype),
     }
     if m.n_shared_experts:
         p["shared"] = L.init_swiglu(gen, d, f * m.n_shared_experts,
-                                    device=device, lead=lead)
+                                    device=device, lead=lead, dtype=dtype)
     return p
 
 

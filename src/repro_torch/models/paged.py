@@ -50,8 +50,9 @@ def supports_paged(cfg: ModelConfig) -> bool:
 
 def check_paged(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` unless the paged path serves ``cfg``:
-    a uniform GQA decoder the port runs (the SSM and hybrid families run
-    through the contiguous-cache steps only, as in the reference)."""
+    a uniform GQA decoder (the SSM, hybrid, gemma3, MLA and
+    encoder-decoder families run through the contiguous-cache steps
+    only, as in the reference)."""
     check_supported(cfg)
     if not supports_paged(cfg):
         raise NotImplementedError(

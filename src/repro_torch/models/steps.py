@@ -1,8 +1,8 @@
 """Step functions of the contiguous-cache path: train_step / prefill /
 serve_step.
 
-Counterpart of ``repro/models/steps.py`` for the configs the port's
-registry holds (the uniform, zamba2 and rwkv layer patterns).  They operate on contiguous
+Counterpart of ``repro/models/steps.py`` for every config of the
+registry.  They operate on contiguous
 decode caches (``transformer.init_caches``); the serving engine's paged
 decode path lives in ``core/`` and ``models/paged.py``.  Each runs
 eagerly: the reference's launcher jits its train step, and capturing
@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
+from repro_torch.models.attention import MLACache
 from repro_torch.models.layers import COMPUTE_DTYPE
 from repro_torch.train.optimizer import (AdamWState, adamw_init,
                                          adamw_update, tree_leaves,
@@ -60,9 +61,10 @@ def chunked_ce_loss(hidden, head_table, labels, chunk: int = CE_CHUNK):
 
 def lm_loss(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             remat: bool = True) -> torch.Tensor:
-    """Next-token loss of ``batch`` (``tokens``, ``labels`` (B, T), and
-    ``extra_embeds`` for a VLM) plus ``AUX_LOSS_WEIGHT`` times the MoE
-    aux loss.  A VLM's image positions are prepended and not scored."""
+    """Next-token loss of ``batch`` (``tokens``, ``labels`` (B, T),
+    ``extra_embeds`` for a VLM, ``encoder_frames`` for an encoder-decoder)
+    plus ``AUX_LOSS_WEIGHT`` times the MoE aux loss.  A VLM's image
+    positions are prepended and not scored."""
     labels = batch["labels"]
     hidden, _, aux = T.forward_seq(
         params, cfg, batch["tokens"], extra_embeds=batch.get("extra_embeds"),
@@ -78,14 +80,16 @@ def lm_loss(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 
 def loss_and_grads(params, cfg: ModelConfig, batch, remat: bool = True):
     """(loss, grads): ``lm_loss`` and its gradient tree w.r.t. every
-    leaf of ``params`` (the reference's ``jax.value_and_grad``).
-    ``params`` itself is not marked for autograd."""
+    leaf of ``params`` (the reference's ``jax.value_and_grad``); a leaf
+    the loss does not use (whisper's ``final_norm``) gets zeros, as
+    there.  ``params`` itself is not marked for autograd."""
     leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
     with torch.enable_grad():
         loss = lm_loss(leaves, cfg, batch, remat=remat)
         flat = tree_leaves(leaves)
-        grads = torch.autograd.grad(loss, flat)
-    it = iter(grads)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    it = iter(torch.zeros_like(p) if g is None else g
+              for p, g in zip(flat, grads))
     return loss.detach(), tree_map(lambda _: next(it), leaves)
 
 
@@ -126,27 +130,64 @@ def make_prefill(cfg: ModelConfig):
     return functools.partial(prefill, cfg=cfg)
 
 
+def _put(dst, src, axis: int):
+    """Write ``src`` into ``dst`` (in place) at offset 0 along ``axis``,
+    cast to ``dst``'s dtype."""
+    index = [slice(None)] * dst.dim()
+    index[axis] = slice(0, src.shape[axis])
+    dst[tuple(index)] = src.to(dst.dtype)
+
+
 def caches_from_prefill(cfg: ModelConfig, raw, batch: int, cache_len: int):
     """``prefill``'s caches as the decode caches of ``cache_len``
     positions (``init_caches``' type for the config), in their dtypes
     (the reference's cast: an int8 cache is filled by ``serve_step``,
-    which quantises).  Attention K/V is written at offset 0 of zero
-    caches; recurrent states (zamba2's conv windows and SSM states,
-    rwkv's token shifts and S) are taken whole.  Raises
-    ``NotImplementedError`` for the families the port does not run yet
-    (``transformer.check_supported``)."""
+    which quantises).  Attention K/V and MLA latents are written at
+    offset 0 of zero caches (skip_first's layer 0 put in front of the
+    others); gemma3's local rings keep the prompt's last W positions
+    where it holds at least W, rolled by (T - W) % W so that position p
+    lands in slot p % W, as ``gqa_decode``'s ring writes them; whisper's
+    cross K/V and the recurrent states (zamba2's conv windows and SSM
+    states, rwkv's token shifts and S) are taken whole."""
     T.check_supported(cfg)
     pat = T._pattern(cfg)
     if pat == "rwkv":
         return T.RWKVCaches(shift_tm=raw.shift_tm.to(COMPUTE_DTYPE),
                             shift_cm=raw.shift_cm.to(COMPUTE_DTYPE),
                             S=raw.S)
+    if isinstance(raw, dict):                      # skip_first
+        first, rest = raw["first"], raw["rest"]
+        merged = [torch.cat([a[None], b]) for a, b in zip(first, rest)]
+        raw = (MLACache(*merged) if isinstance(rest, MLACache)
+               else tuple(merged))
+    device = next(iter(raw)).device
+    full = T.init_caches(cfg, batch, cache_len, device=device)
+    if cfg.encoder_decoder:
+        sk, sv, ck, cv = raw
+        _put(full.self_k, sk, 2)
+        _put(full.self_v, sv, 2)
+        return full._replace(cross_k=ck.to(full.cross_k.dtype),
+                             cross_v=cv.to(full.cross_v.dtype))
+    if cfg.mla is not None:
+        _put(full.latent, raw.latent, 2)
+        _put(full.k_rope, raw.k_rope, 2)
+        return full
+    if pat == "gemma3":
+        lk, lv, gk, gv = raw                       # lk (P, R, B, T, H, D)
+        W, Tp = full.local_k.shape[3], lk.shape[3]
+        for dst, src in ((full.local_k, lk), (full.local_v, lv)):
+            if Tp >= W:
+                # the last W tokens, position p in slot p % W
+                dst[...] = torch.roll(src[:, :, :, Tp - W:],
+                                      shifts=(Tp - W) % W,
+                                      dims=3).to(dst.dtype)
+            else:
+                _put(dst, src, 3)
+        _put(full.global_k, gk, 2)
+        _put(full.global_v, gv, 2)
+        return full
     if pat == "zamba2":
         conv_p, ssm_p, conv_rem, ssm_rem, k, v = raw
-    else:
-        k, v = raw
-    full = T.init_caches(cfg, batch, cache_len, device=k.device)
-    if pat == "zamba2":
         full = full._replace(
             conv_p=conv_p.to(full.conv_p.dtype),
             ssm_p=ssm_p.to(full.ssm_p.dtype),
@@ -156,9 +197,10 @@ def caches_from_prefill(cfg: ModelConfig, raw, batch: int, cache_len: int):
                      else ssm_rem.to(full.ssm_rem.dtype)))
         fk, fv = full.attn_k, full.attn_v
     else:
+        k, v = raw
         fk, fv = full.k, full.v
-    fk[:, :, :k.shape[2]] = k.to(fk.dtype)
-    fv[:, :, :v.shape[2]] = v.to(fv.dtype)
+    _put(fk, k, 2)
+    _put(fv, v, 2)
     return full
 
 

@@ -50,18 +50,28 @@ def adamw_init(params) -> AdamWState:
                       mu=tree_map(zeros, params), nu=tree_map(zeros, params))
 
 
+# elements of a leaf updated at once: the update's temporaries (a few
+# fp32 copies of what it works on) stay at ~64 MB each, where a whole
+# leaf's (gemma3-12b's 262144 x 3840 embedding: 4 GB) lift its
+# one-period train step's peak from 54.2 to 73.9 GB, more than the card
+# has left beside chip_smoke's other phases
+ADAMW_CHUNK = 1 << 24
+
+
 @torch.no_grad()
 def adamw_update(grads, state: AdamWState, params, *, lr=3e-4, b1=0.9,
                  b2=0.95, eps=1e-8, weight_decay=0.01):
     """One AdamW step; ``params``, ``state.mu`` and ``state.nu`` are
-    written in place.  Returns (params, the new ``AdamWState``).  No
-    host synchronisation: the step count stays on the device."""
+    written in place, ``ADAMW_CHUNK`` elements of a leaf at a time (each
+    element's arithmetic is the same).  Returns (params, the new
+    ``AdamWState``).  No host synchronisation: the step count stays on
+    the device."""
     step = state.step + 1
     t = step.float()
     bc1 = 1.0 - b1 ** t
     bc2 = 1.0 - b2 ** t
 
-    def upd(g, m, v, p):
+    def upd_chunk(g, m, v, p):
         g = g.float()
         m.mul_(b1).add_(g * (1 - b1))
         v.mul_(b2).add_(torch.square(g) * (1 - b2))
@@ -69,6 +79,12 @@ def adamw_update(grads, state: AdamWState, params, *, lr=3e-4, b1=0.9,
         vhat = v / bc2
         delta = mhat / (torch.sqrt(vhat) + eps) + weight_decay * p.float()
         p.copy_((p - lr * delta).to(p.dtype))
+
+    def upd(g, m, v, p):
+        g, m, v, p = g.reshape(-1), m.view(-1), v.view(-1), p.view(-1)
+        for a in range(0, p.numel(), ADAMW_CHUNK):
+            b = a + ADAMW_CHUNK
+            upd_chunk(g[a:b], m[a:b], v[a:b], p[a:b])
 
     tree_map(upd, grads, state.mu, state.nu, params)
     return params, AdamWState(step=step, mu=state.mu, nu=state.nu)

@@ -41,7 +41,9 @@ def model(request):
     return smoke_models(request.param)
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["zamba2-7b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ARCHS + ["zamba2-7b", "rwkv6-1.6b",
+                                  "gemma3-12b", "deepseek-v2-236b",
+                                  "whisper-large-v3"])
 @pytest.mark.parametrize("getter", ["get_config", "get_smoke_config"])
 def test_config_rows_match_reference(arch, getter):
     want = getattr(jax_configs, getter)(arch)
@@ -101,9 +103,15 @@ def test_init_params_draws_the_projector():
     assert abs(float(w.std()) * cfg.frontend.d_embed ** 0.5 - 1.0) < 0.05
     assert sum(t.numel() for t in jax.tree.leaves(p)) == \
         count_params_analytic(cfg)
-    with pytest.raises(NotImplementedError):
-        T.check_supported(dataclasses.replace(
-            cfg, frontend=dataclasses.replace(cfg.frontend, kind="audio")))
+    # an audio frontend on a decoder-only config draws no projector, as
+    # in the reference (whisper's encoder takes its frames instead)
+    audio = dataclasses.replace(
+        cfg, frontend=dataclasses.replace(cfg.frontend, kind="audio"))
+    T.check_supported(audio)
+    p = T.init_params(audio, seed=0, device="cpu")
+    assert "mm_proj" not in p
+    assert sum(t.numel() for t in jax.tree.leaves(p)) == \
+        count_params_analytic(audio) == jax_count(audio)
 
 
 def test_llava_real_launcher_matches_reference(llava, tmp_path, capsys,
@@ -125,7 +133,10 @@ def test_llava_real_launcher_matches_reference(llava, tmp_path, capsys,
                 super().__init__(*a, **k)
                 _seen.append(self)
         monkeypatch.setattr(module, "ServingEngine", Recorded)
-    monkeypatch.setattr(T, "init_params", lambda cfg, seed, device: tparams)
+    # the launcher draws its serving copy with ``init_params(serving=True)``
+    monkeypatch.setattr(
+        T, "init_params", lambda cfg, seed, device, serving=False:
+        T.serving_params(tparams) if serving else tparams)
     argv = ["--online", "--smoke", "--real", "--arch", LLAVA]
     want, want_ev, want_lines = _launch(jax_serve, argv, tmp_path, "ref",
                                         capsys, monkeypatch)

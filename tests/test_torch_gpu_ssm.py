@@ -6,9 +6,9 @@ head shape where named):
     kernel once and agrees with the same block on the CPU (which runs
     ``gla_chunked``), also for T not a multiple of 4 (the kernel's chunk
     rounded up, T padded);
-  * a given state on CUDA without a gradient raises
-    ``NotImplementedError``; with a gradient the block runs
-    ``gla_chunked`` (no launch) and its gradients are finite;
+  * from a given state on CUDA, without a gradient, the block runs
+    ``gla_chunked`` (no launch) and agrees with the CPU; with a gradient
+    it runs ``gla_chunked`` too (no launch) and its gradients are finite;
   * a kernel that cannot be built raises: no plain fallback;
   * zamba2's ``forward_seq`` / ``prefill`` on the card launch the kernel
     once per Mamba2 layer, and its logits, and rwkv6's, agree with the
@@ -82,14 +82,29 @@ def test_mamba2_block_runs_the_kernel_and_matches_the_cpu(cuda, T_):
 
 
 def test_mamba2_block_refuses_a_state_and_trains_without_the_kernel(cuda):
-    cfg, _, params = _model("zamba2-7b", cuda)
+    """(Named for what it checked before the state route existed.)  From
+    a given, non-zero state without a gradient the block runs
+    ``gla_chunked``, launches no kernel, and agrees with the CPU; with a
+    gradient it trains without the kernel."""
+    cfg, cpu_params, params = _model("zamba2-7b", cuda)
     p = _block(params)
-    x = torch.randn((2, 16, cfg.d_model), device=cuda).bfloat16()
-    state = mamba2.init_mamba_state(cfg, 2, device=cuda)
-    with torch.no_grad(), pytest.raises(NotImplementedError,
-                                        match="initial state"):
-        mamba2.mamba2_block_forward(p, x, cfg, state)
+    gen = torch.Generator().manual_seed(5)
+    x_cpu = torch.randn((2, 16, cfg.d_model), generator=gen).bfloat16()
+    st_cpu = mamba2.init_mamba_state(cfg, 2)
+    st_cpu = mamba2.MambaState(
+        conv=torch.randn(st_cpu.conv.shape, generator=gen).bfloat16(),
+        S=0.05 * torch.randn(st_cpu.S.shape, generator=gen))
+    x = x_cpu.to(cuda)
+    state = mamba2.MambaState(st_cpu.conv.to(cuda), st_cpu.S.to(cuda))
     launches.reset(gla.gla_scan_scalar)
+    with torch.no_grad():
+        out, st = mamba2.mamba2_block_forward(p, x, cfg, state)
+        want, wst = mamba2.mamba2_block_forward(_block(cpu_params), x_cpu,
+                                                cfg, st_cpu)
+    assert gla.gla_scan_scalar.launches == 0
+    _close(out, want, ACT_TOL)
+    _close(st.S, wst.S, 1e-2 * max(1.0, float(wst.S.abs().max())))
+    assert torch.equal(st.conv.cpu(), wst.conv)
     leaves = {k: t.detach().requires_grad_(True) for k, t in p.items()}
     out, st = mamba2.mamba2_block_forward(leaves, x, cfg, state)
     (out.float().sum() + st.S.sum()).backward()

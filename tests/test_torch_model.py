@@ -70,7 +70,9 @@ def test_config_matches_reference(getter):
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert configs.list_archs() == [ARCH, "llama3.2-3b", "mistral-nemo-12b",
                                     "olmoe-1b-7b", "llava-next-mistral-7b",
-                                    "zamba2-7b", "rwkv6-1.6b"]
+                                    "zamba2-7b", "rwkv6-1.6b", "gemma3-12b",
+                                    "deepseek-v2-236b", "whisper-large-v3"]
+    assert sorted(configs.list_archs()) == sorted(jax_configs.list_archs())
     assert count_params_analytic(got) == jax_count(want)
 
 

@@ -374,8 +374,10 @@ def test_real_launcher_matches_reference(weights, tmp_path, capsys,
     import repro.core as jax_core
     import repro_torch.core as torch_core
     gaps = EngineGaps(monkeypatch)
-    monkeypatch.setattr(T, "init_params",
-                        lambda cfg, seed, device: weights[1])
+    # the launcher draws its serving copy with ``init_params(serving=True)``
+    monkeypatch.setattr(
+        T, "init_params", lambda cfg, seed, device, serving=False:
+        T.serving_params(weights[1]) if serving else weights[1])
     engines = {"ref": [], "port": []}
     _recording(monkeypatch, jax_core, engines["ref"])
     _recording(monkeypatch, torch_core, engines["port"])

@@ -10,7 +10,8 @@ smoke configs, the reference's weights converted with
     ``forward_seq`` logits and caches, ``init_caches`` and ``serve_step``s
     from them (bf16 and int8 attention K/V), ``prefill`` ->
     ``caches_from_prefill`` -> ``serve_step``s;
-  * ``check_supported`` and the paged path's refusals, and
+  * ``check_supported`` (which passes every registry arch) and the paged
+    path's refusals, and
     ``launch.serve --real``'s refusal with the reference's message.
 tests/test_torch_ssm_train.py holds the training path and its launcher.
 
@@ -325,24 +326,28 @@ def test_prefill_then_serve_steps_match_reference(model, reference_forward):
 
 
 def test_check_supported_names_only_what_is_missing():
-    """zamba2 and rwkv pass; MLA, a skip_first MoE, local_global and an
-    encoder-decoder raise, naming what is missing; the paged path takes
-    uniform decoders only."""
-    for arch in ARCHS:
+    """Every arch of the registry passes (since the last three families
+    were ported, MLA, a skip_first MoE, local_global and encoder-decoder
+    models among them); a layer pattern the reference does not know
+    either raises, naming it; the paged path takes uniform GQA decoders
+    only, and refuses the SSM and hybrid families and the three others."""
+    for arch in configs.list_archs():
         T.check_supported(configs.get_config(arch))
+    for arch in ARCHS + ["gemma3-12b", "deepseek-v2-236b",
+                         "whisper-large-v3"]:
         with pytest.raises(NotImplementedError, match="paged path"):
             check_paged(configs.get_smoke_config(arch))
     base = configs.get_smoke_config("qwen2-1.5b")
     moe = configs.get_smoke_config("olmoe-1b-7b")
-    for bad in (dataclasses.replace(base, layer_pattern="local_global:5"),
-                dataclasses.replace(base, mla=configs.MLAConfig()),
-                dataclasses.replace(base, encoder_decoder=True),
-                dataclasses.replace(moe, moe=dataclasses.replace(
-                    moe.moe, layer_pattern="skip_first"))):
-        with pytest.raises(NotImplementedError,
-                           match="MLA attention, a skip_first MoE, the "
-                                 "local_global pattern, encoder-decoder"):
-            T.check_supported(bad)
+    for ok in (dataclasses.replace(base, layer_pattern="local_global:1"),
+               dataclasses.replace(base, mla=configs.MLAConfig()),
+               dataclasses.replace(base, encoder_decoder=True),
+               dataclasses.replace(moe, moe=dataclasses.replace(
+                   moe.moe, layer_pattern="skip_first"))):
+        T.check_supported(ok)
+    with pytest.raises(NotImplementedError,
+                       match="unknown layer pattern 'mixed'"):
+        T.check_supported(dataclasses.replace(base, layer_pattern="mixed"))
 
 
 @pytest.mark.parametrize("arch", ARCHS)

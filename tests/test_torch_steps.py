@@ -31,14 +31,17 @@ from repro_torch import configs
 from repro_torch.models import attention as attn
 from repro_torch.models import steps as S
 from repro_torch.models import transformer as T
+from repro_torch.models.paged import supports_paged
 from test_torch_model import KV_TOL, LOGIT_TOL, assert_close_bf16, \
     smoke_models
 from torch_threads import one_torch_thread  # noqa: E402,F401
 
-# the uniform decoders; the SSM and hybrid families (zamba2, rwkv) are
-# held in tests/test_torch_ssm.py and tests/test_torch_ssm_train.py
+# the uniform GQA decoders; the SSM and hybrid families (zamba2, rwkv)
+# are held in tests/test_torch_ssm.py and tests/test_torch_ssm_train.py,
+# gemma3, deepseek-v2 (MLA) and whisper (encoder-decoder) in
+# tests/test_torch_families.py and tests/test_torch_families_train.py
 ARCHS = [a for a in configs.list_archs()
-         if configs.get_config(a).layer_pattern == "uniform"]
+         if supports_paged(configs.get_config(a))]
 # a greedy token may differ only where the reference's logits hold the
 # port's token this close to their maximum (bf16 rounding can flip a
 # near-tie, not a clear winner)
@@ -253,7 +256,21 @@ def test_prefill_then_serve_steps_match_reference(model):
 
 
 def test_caches_from_prefill_refuses_other_families():
+    """A layer pattern neither package knows is refused; the families
+    refused before they were ported convert: qwen2's smoke config as
+    one local_global period (a ring of its 8-token window) gives the
+    reference's ``Gemma3Caches`` shapes and dtypes."""
     cfg = configs.get_smoke_config("qwen2-1.5b")
-    other = dataclasses.replace(cfg, layer_pattern="local_global:5")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        S.caches_from_prefill(other, (None, None), 1, 8)
+    with pytest.raises(NotImplementedError, match="unknown layer pattern"):
+        S.caches_from_prefill(dataclasses.replace(cfg, layer_pattern="mixed"),
+                              (None, None), 1, 8)
+    gemma = dataclasses.replace(cfg, layer_pattern="local_global:1",
+                                sliding_window=8)
+    params = T.init_params(gemma, seed=0, device="cpu")
+    _, raw = S.prefill(params, gemma, torch.ones((1, 12), dtype=torch.long))
+    got = S.caches_from_prefill(gemma, raw, 1, 16)
+    want = jax_T.init_caches(gemma, 1, 16)
+    assert type(got).__name__ == type(want).__name__ == "Gemma3Caches"
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == w.shape and g.dtype == torch.bfloat16
+    assert got.local_k.shape[3] == 8 and got.global_k.shape[2] == 16

@@ -38,15 +38,18 @@ from repro.train import optimizer as jax_opt
 from repro_torch import configs
 from repro_torch.models import steps as S
 from repro_torch.models import transformer as T
+from repro_torch.models.paged import supports_paged
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import optimizer as opt
 from test_torch_model import smoke_models
 from torch_threads import one_torch_thread  # noqa: E402,F401
 
-# the uniform decoders; the SSM and hybrid families (zamba2, rwkv) are
-# held in tests/test_torch_ssm.py and tests/test_torch_ssm_train.py
+# the uniform GQA decoders; the SSM and hybrid families (zamba2, rwkv)
+# are held in tests/test_torch_ssm.py and tests/test_torch_ssm_train.py,
+# gemma3, deepseek-v2 (MLA) and whisper (encoder-decoder) in
+# tests/test_torch_families.py and tests/test_torch_families_train.py
 ARCHS = [a for a in configs.list_archs()
-         if configs.get_config(a).layer_pattern == "uniform"]
+         if supports_paged(configs.get_config(a))]
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 
 # The loss is a mean of fp32 log-probabilities over bf16 hidden states:
