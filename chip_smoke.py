@@ -208,6 +208,39 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                its launcher).  The launchers' refusals: ``launch.train
                --device cuda`` of gemma3-12b and deepseek-v2-236b,
                ``launch.serve --real`` of all three.
+  5k. mesh   — tensor-parallel serving, in a process of its own
+               (``scripts/mesh_probe.py``): the engine phase's workload
+               served by qwen2-1.5b whole on a (1, 2) mesh (6 / 1 heads a
+               shard) and by olmoe-1b-7b whole from its bf16 serving init
+               on a (1, 4) mesh (4 / 4 heads a shard), every shard on this
+               card (an explicit device list with repeats), each beside the
+               same workload on one device.  Per mesh: a warm-up (each
+               bucket's first replay byte-equal to its eager step) and a
+               timed run with the serving kernels' counts set to 0 just
+               before, both held to the simulated clock: the held swap
+               counts (81 / 156 and 74 / 142, as on one device); one d2h
+               per staged swap-out and one h2d per swap-in sub-slab per
+               shard; every turn finished, every conversation swapped both
+               ways, no copy retried or failed; paged attention once per
+               layer per shard per step, each shard's run copies once per
+               staged chunk; the one-device run's graph counts; the two
+               runs' tokens equal; qwen2's tokens equal to the one-device
+               run's or the dense argmax or a near-tie (0.05); the oracle
+               step at the engine's bucket, the sharded step against the
+               one-device step on the same state (olmoe's routing pinned;
+               every logit within 0.1, the argmax equal or a near-tie);
+               the engine bucket's attention per shard against its plain
+               version (phase 3's bound), the shards' outputs against the
+               one-device launch; one 64-block staged swap out of and back
+               into a one-device pool and a mesh pool holding the same
+               bytes (host and device blocks byte-equal); wall, host
+               seconds by method, per-shard launches, transfers, peak
+               memory.  On (1, 2), the sampling phase's batch (the sampled
+               variant's first replay held to eager; every token the plain
+               sampler's draw or a near-tie).  Then the engine's refusals
+               of a mesh over two CUDA devices (``NotImplementedError``)
+               and of a default device list too short (``ValueError``),
+               before any work.
   6. device_times — the device time of each phase-3 kernel and library
                call alone: their CUDA kernels under ``torch.profiler``, the
                wrapper's host time left out.  After the engine phases,
@@ -231,8 +264,10 @@ Phases, each printing one JSON line (``{"phase": ...}``):
 
 Then a ``kernels`` line (per kernel: launches on its path, error, times
 around the call and on the device, bound, and the bound's share of the
-device time; the scan's launches are those of phase 5i's zamba2 prefill,
-with its times there beside phase 3's) and, as the last line,
+device time; the serving kernels' launches on each path beside the
+engine's, the mesh runs' summed over their shards and per shard; the
+scan's launches are those of phase 5i's zamba2 prefill, with its times
+there beside phase 3's) and, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
 then not 0 and the last line is not printed.  Imports nothing of JAX or
 of the JAX package.
@@ -1241,9 +1276,10 @@ def _count_swaps(swap):
 
 
 def run_engine(bundle, convs, *, gpu_blocks: int, cpu_blocks: int,
-               max_running: int, seed: int = 13):
+               max_running: int, seed: int = 13, mesh=(1, 1)):
     """Serve ``convs`` through the replay client of ``ServingEngine`` in
-    real mode (fastswitch policy, a random priority storm).  Returns
+    real mode (fastswitch policy, a random priority storm) on ``mesh``
+    (the bundle's ``mesh_devices`` name its devices).  Returns
     (engine, wall seconds, host seconds by method, data-moving swaps by
     (request id, direction)); the wall time ends in a device
     synchronise."""
@@ -1253,7 +1289,8 @@ def run_engine(bundle, convs, *, gpu_blocks: int, cpu_blocks: int,
     cfg = EngineConfig(mode="real", num_gpu_blocks=gpu_blocks,
                        num_cpu_blocks=cpu_blocks, max_running=max_running,
                        max_batch=max_running, block_size=16,
-                       seed=SEED).with_policy("fastswitch")
+                       seed=SEED, mesh_shape=tuple(mesh)
+                       ).with_policy("fastswitch")
     eng = FastSwitchEngine(cfg, convs, trace=PriorityTrace("random", 0.5,
                                                            seed=seed),
                            model_bundle=bundle)
@@ -1337,9 +1374,20 @@ def check_engine(eng, convs, swaps, expect_swaps=None) -> dict:
 
 
 def _bytes_equal(a, b) -> bool:
+    """Byte equality of two tensors, or of two per-shard lists shard by
+    shard."""
     import torch
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(_bytes_equal, a, b))
     return torch.equal(a.contiguous().view(torch.uint8),
                        b.contiguous().view(torch.uint8))
+
+
+def _clone(t):
+    """A clone of a tensor, or of each shard of a per-shard list."""
+    if isinstance(t, (list, tuple)):
+        return [x.clone() for x in t]
+    return t.clone()
 
 
 @contextlib.contextmanager
@@ -1361,7 +1409,7 @@ def replays_held_to_eager():
         if any(c["bucket"] == bucket and c["sampled"] == sampled
                for c in checked):
             return real(graph, tensors)
-        clones = [t.clone() for t in tensors]
+        clones = [_clone(t) for t in tensors]
         nxt = real(graph, tensors)
         want = graph._step(*clones)           # eager, on the clones
         equal = {"nxt": _bytes_equal(nxt, want)}
@@ -1706,17 +1754,18 @@ def check_sampled_tokens(eng, bundle, conv, smp, seed: int = SEED,
 
 def run_sampling(bundle, n_requests: int = 8,
                  prompt_tokens=(256, 288, 320, 352), max_tokens: int = 32,
-                 gpu_blocks: int = 256, sampling=SAMPLING):
+                 gpu_blocks: int = 256, sampling=SAMPLING, mesh=(1, 1)):
     """Serve ``n_requests`` single-turn requests in one batch through
-    ``ServingEngine`` in real mode: odd handles sample at ``sampling``
-    (greedy too where it is None), even ones are greedy.  Returns
-    (engine, the requests as conversations)."""
+    ``ServingEngine`` in real mode on ``mesh``: odd handles sample at
+    ``sampling`` (greedy too where it is None), even ones are greedy.
+    Returns (engine, the requests as conversations)."""
     from repro_torch.core import EngineConfig, SamplingParams, ServingEngine
     from repro_torch.data.sharegpt import Conversation, Turn
     cfg = EngineConfig(mode="real", num_gpu_blocks=gpu_blocks,
                        num_cpu_blocks=gpu_blocks, max_running=n_requests,
                        max_batch=n_requests, block_size=16,
-                       seed=SEED).with_policy("fastswitch")
+                       seed=SEED, mesh_shape=tuple(mesh)
+                       ).with_policy("fastswitch")
     eng = ServingEngine(cfg, model_bundle=bundle)
     vocab = bundle["cfg"].vocab_size
     convs = []
@@ -2232,7 +2281,7 @@ def fullest_replays():
         n = int(tensors[dr.STEP_TENSORS.index("active")].sum())
         if n > snaps.get(bucket, {"active": 0})["active"]:
             snaps[bucket] = {"active": n,
-                             "clones": [t.clone() for t in tensors]}
+                             "clones": [_clone(t) for t in tensors]}
         return real(graph, tensors)
     dr._StepGraph.replay = replay
     try:
@@ -3320,20 +3369,35 @@ def zamba2_train_cut(device, cfg, batch=(2, 64)) -> dict:
     return {**out, "scan_launches": launched}
 
 
-def _refusal(argv, want: str) -> dict:
-    """``python -m argv`` as a subprocess that must exit non-zero with
-    ``want`` in the last line of its standard error and no traceback."""
+def _refusals(cases: dict) -> dict:
+    """Each ``name: (argv, want)`` of ``cases`` run as ``python -m argv``,
+    all as subprocesses at once; each must exit non-zero with ``want`` in
+    the last line of its standard error and no traceback."""
     import os
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-    run = subprocess.run([sys.executable, "-m", *argv], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=300)
-    said = run.stderr.strip().splitlines()
-    if run.returncode == 0 or not said or want not in said[-1] \
-            or "Traceback" in run.stderr:
-        raise AssertionError(f"{' '.join(argv)} exited "
-                             f"{run.returncode}: {run.stderr[-2000:]}")
-    return {"argv": argv, "exit": run.returncode, "message": said[-1]}
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", *argv], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, (argv, _) in cases.items()}
+    out, faults = {}, []
+    for name, proc in procs.items():
+        try:
+            _, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            _, err = proc.communicate()
+        argv, want = cases[name]
+        said = err.strip().splitlines()
+        if proc.returncode == 0 or not said or want not in said[-1] \
+                or "Traceback" in err:
+            faults.append(f"{' '.join(argv)} exited {proc.returncode}: "
+                          f"{err[-2000:]}")
+        out[name] = {"argv": argv, "exit": proc.returncode,
+                     "message": said[-1] if said else ""}
+    if faults:
+        raise AssertionError("; ".join(faults))
+    return out
 
 
 def _refusal_cases(device, arch: str) -> dict:
@@ -3358,8 +3422,7 @@ def _refusal_cases(device, arch: str) -> dict:
 def launcher_refusals(device) -> dict:
     """The launchers on zamba2-7b where they must refuse, as subprocesses
     (``_refusal_cases``)."""
-    return {name: _refusal(*case)
-            for name, case in _refusal_cases(device, SSM_ARCH).items()}
+    return _refusals(_refusal_cases(device, SSM_ARCH))
 
 
 def ssm_phase(device, zcfg=None, rcfg=None, serve=((8, 256), 32, 512),
@@ -3926,15 +3989,472 @@ def families_phase(device, gcfg=None, dcfg=None, wcfg=None,
             get_smoke_config(DEEPSEEK_ARCH), device, check,
             TRAIN_GRAD_RTOL),
         "whisper": lambda: train_phase(device, cfg=wcfg, **whisper),
-        "refusals": lambda: {
-            f"{kind}:{arch}": _refusal(*case)
+        "refusals": lambda: _refusals({
+            f"{kind}:{arch}": case
             for arch in (GEMMA_ARCH, DEEPSEEK_ARCH, WHISPER_ARCH)
             for kind, case in _refusal_cases(device, arch).items()
-            if kind == "serve" or arch != WHISPER_ARCH}}
+            if kind == "serve" or arch != WHISPER_ARCH})}
     out = {}
     for name, run in parts.items():
         out[name] = run()
         print(json.dumps({"families_part": name, **out[name]}),
+              file=sys.stderr, flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5k: tensor-parallel serving, the mesh's shards on one card
+# ---------------------------------------------------------------------------
+
+# the mesh oracle step: the sharded step against the one-device step on
+# the same state (a MoE's routing pinned to the sharded step's choices).
+# Paged attention gives each head the same bytes in both (the one-device
+# split-KV plan); the q/k/v products over column slices may round apart
+# by an ulp, which 28 (16) layers of bf16 activations carry to the fp32
+# logits as the moe phase's kernel-against-plain attention does: held
+# per logit to the moe phase's bound, the argmax equal or a near-tie.
+MESH_LOGIT_ATOL = MOE_LOGIT_ATOL
+
+
+def mesh_transfers(pools, n_shards: int) -> dict:
+    """The per-shard swap plane's accounting: one d2h per staged
+    swap-out and one h2d per swap-in sub-slab, for every shard; raises
+    otherwise."""
+    got = {"n_shards": pools.n_shards,
+           "staged_out_calls": pools.staged_out_calls,
+           "staged_in_calls": pools.staged_in_calls,
+           "d2h_transfers": pools.d2h_transfers,
+           "h2d_transfers": pools.h2d_transfers}
+    if (pools.n_shards != n_shards
+            or pools.d2h_transfers != n_shards * pools.staged_out_calls
+            or pools.h2d_transfers != n_shards * pools.staged_in_calls):
+        raise AssertionError(f"transfers are not one per staged chunk per "
+                             f"shard over {n_shards} shards: {got}")
+    return got
+
+
+def shard_attention(case, n_shards: int) -> dict:
+    """The case's paged attention cut into ``n_shards`` head shards: each
+    shard's kernel on its local heads with the one-device split-KV plan,
+    held per element to its plain version (phase 3's bound); the shards'
+    outputs concatenated in order against the one-device launch (the same
+    bound; byte equality reported)."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    q, k, v = case["q"], case["k"], case["v"]
+    B, Hq, D = q.shape
+    Hkv = k.shape[2]
+    hq, hk = Hq // n_shards, Hkv // n_shards
+    rest = (case["bt"], case["ctx"], case["scale"], case["ppcb"])
+    outs, errs = [], []
+    for s in range(n_shards):
+        args = (q[:, s * hq:(s + 1) * hq].contiguous(),
+                k[:, :, s * hk:(s + 1) * hk].contiguous(),
+                v[:, :, s * hk:(s + 1) * hk].contiguous()) + rest
+        out = pa.paged_attention(*args, plan_kv_heads=Hkv)
+        errs.append(attention_error(out, pa.paged_attention_plain(*args),
+                                    f"paged_attention shard {s}"))
+        outs.append(out)
+    whole = pa.paged_attention(q, k, v, *rest)
+    cat = torch.cat(outs, dim=1)
+    _sync(q.device)
+    return {"shards": n_shards, "q_kv_heads_per_shard": [hq, hk],
+            "max_abs_err_by_shard": errs,
+            "concat_vs_one_device_err": attention_error(
+                cat, whole, "paged_attention shards concatenated"),
+            "concat_byte_equal_one_device": _bytes_equal(cat, whole),
+            "tolerance": {"atol": ATTN_ATOL, "rtol": ATTN_RTOL}}
+
+
+def cross_mesh_swap(device, L: int, Hkv: int, D: int, n_shards: int,
+                    seed: int = 5) -> dict:
+    """Phase 3c's 64-block staged swap out of a one-device pool and out of
+    an (1, ``n_shards``) pool holding the same bytes: the host blocks
+    byte-equal; then back into each, its blocks zeroed first: the device
+    pools byte-equal to before.  Host ms of each leg, and the transfers
+    (1 and ``n_shards`` a leg)."""
+    import numpy as np
+    import torch
+    from repro_torch.cache.paged import PagedPools
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models.sharding import POOL_HEAD_AXIS, shard_tensor
+    one, runs, blocks, cpu_ids = swap_pools(device, seed, L, Hkv, D)
+    before = one.gpu.clone()
+    sharded = PagedPools(one.spec, device=device, mesh=make_serving_mesh(
+        (1, n_shards), [device] * n_shards))
+    for g, part in zip(sharded.gpu, shard_tensor(before, POOL_HEAD_AXIS,
+                                                 n_shards)):
+        g.copy_(part)
+    idx = torch.as_tensor(blocks, device=device)
+    out = {}
+    for name, p in (("one_device", one), (f"mesh_1x{n_shards}", sharded)):
+        _sync(device)
+        t0 = time.perf_counter()
+        p.copy_out_staged(runs, cpu_ids)
+        out_ms = (time.perf_counter() - t0) * 1e3
+        for g, _ in p._shards():
+            g[:, :, idx] = 0
+        _sync(device)
+        t0 = time.perf_counter()
+        p.copy_in_staged(cpu_ids, runs)
+        _sync(device)
+        out[name] = {"out_ms": out_ms,
+                     "in_ms": (time.perf_counter() - t0) * 1e3,
+                     "d2h_transfers": p.d2h_transfers,
+                     "h2d_transfers": p.h2d_transfers}
+    if not np.array_equal(one.cpu, sharded.cpu):
+        raise AssertionError("the staged swap-out's host blocks differ "
+                             "between the one-device pool and the mesh's")
+    if not (_bytes_equal(one.gpu, before)
+            and _bytes_equal(sharded.gpu_full(), before)):
+        raise AssertionError("a pool's blocks after the staged swap-in "
+                             "differ from before")
+    if out[f"mesh_1x{n_shards}"]["d2h_transfers"] != n_shards:
+        raise AssertionError(f"the mesh's swap-out made "
+                             f"{out[f'mesh_1x{n_shards}']['d2h_transfers']} "
+                             f"transfers over {n_shards} shards")
+    return {"blocks": len(blocks), "bytes": len(blocks)
+            * one.spec.block_bytes(), "legs": out,
+            "host_byte_equal": True, "device_byte_equal": True}
+
+
+def mesh_oracle(eng, snap, params, tol: float = NEAR_TIE) -> dict:
+    """One decode step at the engine's bucket from the snapshot's state
+    (a replay of the mesh engine ``eng``): the sharded step over the
+    per-shard pools, and the one-device step (``params``, the full
+    serving tree) over the shards' pools concatenated, the one-device
+    step's MoE routing pinned to the sharded step's choices.  Per active
+    row the logits (the sharded step's as the shards' vocab slices
+    concatenated) within MESH_LOGIT_ATOL, and the argmax equal or a
+    near-tie of the one-device step's logits.  Raises with every row's
+    record where a row fails."""
+    import torch
+    from repro_torch.core import decode_runner as dr
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe
+    from repro_torch.models import paged
+    from repro_torch.models.sharding import POOL_HEAD_AXIS, unshard
+    cfg = eng.runner.mb["cfg"]
+    shards = eng.runner._params
+    t = dict(zip(dr.STEP_TENSORS, snap["clones"]))
+    n = len(t["pool"])
+    real_route = moe.route
+    active = t["active"].cpu()
+
+    def step(p, pool, pinned=None):
+        plans = []
+
+        def route(router, xf, m):
+            plan = real_route(router, xf, m)
+            if pinned is not None:
+                plan = moe.plan_for(plan.probs, pinned[len(plans)], m)
+            plans.append(plan.eids)
+            return plan
+        moe.route = route
+        try:
+            with torch.no_grad():
+                x, _ = paged._decode_hidden(
+                    p, pool, t["block_tables"], t["context_lens"].clone(),
+                    t["tokens"], cfg)
+                rep = p[0] if isinstance(p, list) else p
+                head = rep["embed"] if cfg.tie_embeddings else rep["lm_head"]
+                if isinstance(p, list) and cfg.vocab_size % n == 0:
+                    lg = unshard(paged.vocab_slices(head["table"], x, n), 1)
+                else:
+                    lg = L.unembed(head, x)
+                return lg.cpu(), plans
+        finally:
+            moe.route = real_route
+
+    ls, plans = step(shards, [q.clone() for q in t["pool"]])
+    l1, _ = step(params, unshard(t["pool"], POOL_HEAD_AXIS),
+                 pinned=plans if cfg.moe is not None else None)
+    records, faults = [], []
+    for r in torch.nonzero(active)[:, 0].tolist():
+        a, b = int(ls[r].argmax()), int(l1[r].argmax())
+        rec = {"row": r, "ctx": int(t["context_lens"][r]),
+               "logit_err": float((ls[r] - l1[r]).abs().max()),
+               "argmax_gap": float(l1[r, b] - l1[r, a])}
+        if not rec["logit_err"] <= MESH_LOGIT_ATOL:
+            faults.append(f"row {r}: logits {rec['logit_err']} from the "
+                          f"one-device step's (> {MESH_LOGIT_ATOL})")
+        if a != b and rec["argmax_gap"] >= tol:
+            faults.append(f"row {r}: the sharded step's argmax {a} is "
+                          f"{rec['argmax_gap']} below the one-device "
+                          "step's")
+        records.append(rec)
+    if faults:
+        raise AssertionError(f"{faults}; rows: {json.dumps(records)}")
+    return {"rows": records,
+            "max_abs_logit_err": max(r["logit_err"] for r in records),
+            "logits_equal": bool(torch.equal(ls[active], l1[active])),
+            "argmax_near_ties": sum(r["argmax_gap"] > 0 for r in records),
+            "tolerance": {"logit_atol": MESH_LOGIT_ATOL, "near_tie": tol}}
+
+
+def mesh_prefill(eng, params, sizes=(256, 352)) -> dict:
+    """For each prompt size of ``sizes`` (the engine workload's shortest
+    and longest first turns: chunks padded to 256 and 512 tokens), one
+    prefill chunk through the mesh engine's sharded chunk forward and
+    through the one-device one (``params``, the full serving tree), from
+    empty carries: the last logits' largest difference and argmaxes, and
+    whether the carries (the shards' concatenated) and layer 0's K (which
+    the q/k/v products over column slices alone feed) are byte-equal.
+    Reported, not held: the engine runs' tokens are."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.sharding import CARRY_HEAD_AXIS, unshard
+    cfg = eng.runner.mb["cfg"]
+    out = {}
+    for n_tokens in sizes:
+        toks = [(7 * i + 3) % cfg.vocab_size for i in range(n_tokens)]
+        one = ops.prefill_chunk(params, toks, None, None, 0, cfg=cfg,
+                                block_size=16)
+        sh = ops.prefill_chunk(eng.runner._params, toks, None, None, 0,
+                               cfg=cfg, block_size=16, mesh=eng.mesh)
+        k, v = (unshard(c, CARRY_HEAD_AXIS) for c in sh[1:3])
+        out[n_tokens] = {
+            "logit_max_abs_diff": float((sh[0] - one[0]).abs().max()),
+            "argmax": [int(sh[0].argmax()), int(one[0].argmax())],
+            "k_byte_equal": _bytes_equal(k, one[1]),
+            "v_byte_equal": _bytes_equal(v, one[2]),
+            "layer0_k_byte_equal": _bytes_equal(k[0], one[1][0]),
+            "k_max_abs_diff": float((k.float() - one[1].float())
+                                    .abs().max())}
+    return out
+
+
+def mesh_sampling(bundle, n_shards: int) -> dict:
+    """The sampling phase's batch (odd requests sampled) served on (1,
+    ``n_shards``): the first replay of each variant held to its eager
+    step, sampled tokens the plain sampler's draws from the dense
+    forward (or a stated near-tie), greedy ones the dense argmax or a
+    near-tie."""
+    shape = (1, n_shards)
+    with replays_held_to_eager() as held:
+        eng, convs = run_sampling(bundle, mesh=shape)
+    stats = check_sampling(eng, convs)
+    if not any(c["sampled"] for c in held):
+        raise AssertionError("no sampled decode-step variant was replayed "
+                             "on the mesh")
+    greedy = [check_tokens(eng, bundle, c) for c in convs[::2]]
+    sampled = [check_sampled_tokens(eng, bundle, c, SAMPLING)
+               for c in convs[1::2]]
+    mesh_transfers(eng.pools, n_shards)
+    return {**stats, "replays_checked": held,
+            "greedy_equal": sum(r["equal"] for r in greedy),
+            "greedy_near_ties": sum(r["near_ties"] for r in greedy),
+            "sampled_generated": sum(r["generated"] for r in sampled),
+            "sampled_equal": sum(r["equal"] for r in sampled),
+            "sampled_near_ties": [w for r in sampled
+                                  for w in r["near_ties"]]}
+
+
+def mesh_serve(device, arch: str, n_shards: int, cfg=None,
+               serving: bool = False, sampling: bool = False) -> dict:
+    """``arch`` (``cfg``: another config, for a rehearsal on the CPU)
+    served by the engine phase's workload on one device and on a (1,
+    ``n_shards``) mesh whose shards all name ``device``: the mesh's
+    warm-up (which pays the process's one-time costs; each bucket's
+    first replay held to its eager step, the fullest replay of each
+    bucket kept), the one-device run, then the mesh's timed run, the
+    serving kernels' counts set to 0 just before; all held to the
+    simulated clock.  Checks
+    (``check_engine`` on every run): every turn finished, no copy retried
+    or failed, every conversation swapped both ways, the held swap
+    counts (``ENGINE_SWAPS`` / ``MOE_SWAPS``) on every mesh; one
+    transfer per staged chunk per shard (``mesh_transfers``); on the
+    card, paged attention once per layer per shard per step, each shard's
+    run copies once per staged chunk; the graph counts of the one-device
+    run; the warm-up's and the timed run's tokens equal; each
+    conversation's tokens equal to the one-device run's, or (dense) every
+    token the dense argmax or a near-tie (``check_tokens``), or (MoE)
+    reported with its first difference, the MoE's tokens being held by
+    ``mesh_oracle`` as the moe phase holds them by its oracle; the oracle
+    step; the prefill chunk against the one-device one, reported
+    (``mesh_prefill``); the engine bucket's attention per shard
+    (``shard_attention``);
+    one staged swap across the meshes (``cross_mesh_swap``); with
+    ``sampling``, ``mesh_sampling``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launches as kl
+    from repro_torch.launch.serve import _serving_kernels
+    from repro_torch.models import transformer as T
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    cfg = cfg or get_config(arch)
+    if cuda:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=SEED, device=device, serving=serving)
+    init_s = time.perf_counter() - t0
+    mem = ({"after_init_gb": torch.cuda.memory_allocated() / 1e9,
+            "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+           if cuda else {})
+    bundle = {"cfg": cfg, "params": params}
+    mesh_bundle = {**bundle, "mesh_devices": [device] * n_shards}
+    shape = (1, n_shards)
+    convs = conversations(8, (256, 288, 320, 352), (96, 128, 160),
+                          max_tokens=32)
+    sizes = dict(gpu_blocks=160, cpu_blocks=1024, max_running=8)
+    expect = {ARCH: ENGINE_SWAPS, MOE_ARCH: MOE_SWAPS}.get(cfg.name)
+    with swaps_follow_the_clock(), replays_held_to_eager() as held, \
+            fullest_replays() as snaps:
+        warm, warm_wall, _, warm_swaps = run_engine(mesh_bundle, convs,
+                                                    mesh=shape, **sizes)
+    check_engine(warm, convs, warm_swaps, expect_swaps=expect)
+    mesh_transfers(warm.pools, n_shards)
+    if not held:
+        raise AssertionError("no captured decode step was replayed on the "
+                             "mesh")
+    with swaps_follow_the_clock():
+        one, one_wall, one_host, one_swaps = run_engine(bundle, convs,
+                                                        **sizes)
+    one_stats = check_engine(one, convs, one_swaps, expect_swaps=expect)
+    kernels = _serving_kernels()
+    kl.reset(*kernels.values())
+    with swaps_follow_the_clock() as hold:
+        eng, wall, host, swaps = run_engine(mesh_bundle, convs, mesh=shape,
+                                            **sizes)
+    launched = {k: fn.launches for k, fn in kernels.items()}
+    per_shard = {k: [kl.on(fn, p) for p in eng.pools.gpu]
+                 for k, fn in kernels.items()}
+    stats = check_engine(eng, convs, swaps, expect_swaps=expect)
+    transfers = mesh_transfers(eng.pools, n_shards)
+    steps = stats["decode_steps"]
+    want = {"paged_attention": cfg.n_layers * steps,
+            "block_gather_runs": stats["swap_out_calls"],
+            "block_scatter_runs": stats["swap_in_calls"]}
+    if cuda:
+        for k, counts in per_shard.items():
+            if counts != [want[k]] * n_shards or launched[k] != sum(counts):
+                raise AssertionError(
+                    f"{k}: launched {launched[k]}, per shard {counts}; "
+                    f"expected {want[k]} on each of {n_shards} shards")
+    graphs = ("graphs_captured", "eager_steps", "graph_replays",
+              "decode_steps", "prefill_chunks")
+    graphs_apart = {g: (stats[g], one_stats[g]) for g in graphs
+                    if stats[g] != one_stats[g]}
+    if graphs_apart:
+        raise AssertionError(f"the mesh's decode graphs differ from the "
+                             f"one-device run's (mesh, one device): "
+                             f"{graphs_apart}")
+    if eng._token_hist_by_conv != warm._token_hist_by_conv:
+        raise AssertionError("the mesh's warm-up and timed runs gave other "
+                             "tokens")
+    differ = [c for c in convs if eng._token_hist_by_conv[c.conv_id]
+              != one._token_hist_by_conv[c.conv_id]]
+    tokens = {"conversations": len(convs),
+              "equal_one_device": len(convs) - len(differ)}
+    if cfg.moe is None:
+        checked = [check_tokens(eng, bundle, c) for c in differ]
+        tokens.update(
+            checked_dense=len(checked),
+            dense_equal=sum(r["equal"] for r in checked),
+            dense_near_ties=sum(r["near_ties"] for r in checked),
+            max_gap=max([r["max_gap"] for r in checked], default=0.0),
+            tolerance=NEAR_TIE)
+    else:
+        tokens["first_differences"] = [
+            [c.conv_id, *first_divergence(
+                bundle, eng._token_hist_by_conv[c.conv_id],
+                one._token_hist_by_conv[c.conv_id])] for c in differ]
+    bucket = (eng.runner.batch_bucket, eng.runner._pages_bucket)
+    snap = snaps.get(bucket) or max(snaps.values(), key=lambda s: s["active"])
+    oracle = mesh_oracle(eng, snap, T.serving_params(params))
+    prefill = mesh_prefill(eng, T.serving_params(params))
+    del one, warm, snaps, snap
+    out = {"arch": cfg.name, "mesh_shape": list(shape),
+           "devices": [str(device)] * n_shards, "init_s": init_s,
+           "wall_s": wall, "warm_wall_s": warm_wall,
+           "one_device_wall_s": one_wall,
+           "tokens_per_s": stats["tokens"] / wall,
+           "host_s_by_method": host, "one_device_host_s_by_method": one_host,
+           "clock_hold_wait_s": hold["wait_s"], "launches": launched,
+           "launches_per_shard": per_shard, "transfers": transfers,
+           "replays_checked": held, "tokens_vs_one_device": tokens,
+           "oracle": oracle, "prefill_vs_one_device": prefill, **stats}
+    del eng
+    if cuda:
+        gc.collect()
+        torch.cuda.empty_cache()
+    case = attention_case(8, 64, device, seed=1, ctx_range=(256, 600),
+                          Hq=cfg.n_heads, Hkv=cfg.n_kv_heads,
+                          D=cfg.resolved_head_dim)
+    out["attention_per_shard"] = shard_attention(case, n_shards)
+    del case
+    out["swap_across_meshes"] = cross_mesh_swap(
+        device, cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim,
+        n_shards)
+    if sampling:
+        out["sampling"] = mesh_sampling(mesh_bundle, n_shards)
+    if cuda:
+        mem["phase_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["memory"] = mem
+    del bundle, mesh_bundle, params
+    if cuda:
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_refusals(device) -> dict:
+    """The engine's refusals, before any work (the device's allocated
+    bytes unchanged): a mesh whose shards name two CUDA devices
+    (``NotImplementedError``), and a default device list shorter than the
+    mesh (the reference's ``ValueError``)."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import EngineConfig, ServingEngine
+    from repro_torch.models import transformer as T
+    cfg = get_smoke_config(ARCH)
+    bundle = {"cfg": cfg, "params": T.init_params(cfg, seed=SEED,
+                                                  device=device)}
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    cases = {"two_cuda_devices": ((1, 2), ["cuda:0", "cuda:1"],
+                                  NotImplementedError),
+             "default_devices_too_few": ((1, max(n, 1) + 1), None,
+                                         ValueError)}
+    out = {}
+    for name, (shape, devices, exc) in cases.items():
+        allocated = (torch.cuda.memory_allocated()
+                     if torch.cuda.is_available() else 0)
+        cfg_e = EngineConfig(mode="real", num_gpu_blocks=16,
+                             num_cpu_blocks=16, mesh_shape=shape)
+        try:
+            ServingEngine(cfg_e, model_bundle={**bundle,
+                                               "mesh_devices": devices})
+        except exc as e:
+            out[name] = str(e)
+        else:
+            raise AssertionError(f"mesh_shape {shape} on {devices}: not "
+                                 "refused")
+        if torch.cuda.is_available() and \
+                torch.cuda.memory_allocated() != allocated:
+            raise AssertionError(f"{name}: the refused engine allocated "
+                                 "device memory")
+    return out
+
+
+def mesh_phase(device, qcfg=None, ocfg=None) -> dict:
+    """Tensor-parallel serving with every shard on ``device``, at full
+    width where the configs are not given (a rehearsal on the CPU passes
+    reduced ones): qwen2-1.5b whole on (1, 2), 6 / 1 heads a shard, with
+    the sampled batch; olmoe-1b-7b whole from its bf16 serving init on (1,
+    4), 4 / 4 heads a shard (``mesh_serve`` each); then the refusals
+    (``mesh_refusals``).  Each part's result goes to standard error as it
+    comes."""
+    parts = {
+        "qwen2": lambda: mesh_serve(device, ARCH, 2, qcfg, sampling=True),
+        "olmoe": lambda: mesh_serve(device, MOE_ARCH, 4, ocfg,
+                                    serving=True),
+        "refusals": lambda: mesh_refusals(device)}
+    out = {}
+    for name, run in parts.items():
+        out[name] = run()
+        print(json.dumps({"mesh_part": name, **out[name]}, default=str),
               file=sys.stderr, flush=True)
     return out
 
@@ -4223,6 +4743,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit("families", **phase_alone("families"))
 
+    # 5k. tensor-parallel serving: qwen2-1.5b on a (1, 2) mesh and
+    # olmoe-1b-7b on a (1, 4) mesh, every shard on this card, in a process
+    # of its own
+    torch.cuda.empty_cache()
+    mesh = phase_alone("mesh")
+    emit("mesh", **mesh)
+
     # 6. device times of phase 3's calls, after the timed engine runs
     for t in all_timed.values():
         add_device_times(t, flush)
@@ -4289,7 +4816,12 @@ def main() -> int:
                                          fe["launches_per_replica"]],
                 "prefix_launcher": px["kernel_launches"][kname],
                 "moe_engine": mo["launches"][kname],
-                "moe_launcher": mo["launcher"]["kernel_launches"][kname]}}
+                "moe_launcher": mo["launcher"]["kernel_launches"][kname],
+                **{f"mesh_{part}_1x{len(m['launches_per_shard'][kname])}": {
+                    "total": m["launches"][kname],
+                    "per_shard": m["launches_per_shard"][kname]}
+                   for part, m in (("qwen2", mesh["qwen2"]),
+                                   ("olmoe", mesh["olmoe"]))}}}
                if path == serving else {}),
             "ms": times["ms"], "plain_ms": times["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by,

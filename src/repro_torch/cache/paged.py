@@ -1,10 +1,15 @@
 """Paged KV cache pools (device + host), the baseline data plane and the
 staged swap plane.
 
-Counterpart of ``repro/cache/paged.py`` (single device).  The device pool
-is a bf16 tensor of shape (L, 2, num_blocks, block_size, Hkv, D) (2 = K/V);
-the host pool ``cpu`` is a numpy uint16 array of the bf16 BIT PATTERN
-(the engine indexes it as numpy).  On CUDA the host pool and the staging
+Counterpart of ``repro/cache/paged.py``.  The device pool is a bf16
+tensor of shape (L, 2, num_blocks, block_size, Hkv, D) (2 = K/V); under a
+tensor-parallel mesh (``launch/mesh.py``) it is a list of per-shard
+tensors (L, 2, num_blocks, block_size, Hkv / M, D), each over its
+shard's heads on its shard's device (the reference's head-sharded
+array).  The host pool ``cpu`` is a numpy uint16 array of the bf16 BIT
+PATTERN in the full (L, 2, num_cpu_blocks, block_size, Hkv, D) layout
+under every mesh, so swapped bytes compare across meshes (the engine
+indexes it as numpy).  On CUDA the host pool and the staging
 slabs live in pinned memory, so the d2h and h2d legs are real async DMA.
 
 Two data planes, as in the reference:
@@ -36,8 +41,12 @@ the owner of the block table reports every freed range through
 ``note_released``, which records an event on the caller's stream; a
 scatter waits on the events of its target blocks that have not yet
 completed, and on nothing else of the caller's stream.
+Under a mesh, each staged chunk is one gather, one d2h and one h2d per
+shard, on that shard's streams: ``d2h_transfers == n_shards *
+staged_out_calls``, and the same for h2d, as in the reference.  Every
+shard's scatter waits on the release events of its target blocks.
 Residency contract: each staged call returns only once its own last
-event has completed (the bytes are resident in the pool, or have landed
+events have completed (the bytes are resident in the pool, or have landed
 in ``cpu``), so a swap task's future completing means the data is there,
 and the pinned staging buffers outlive their copies.
 
@@ -55,6 +64,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import check_one_device
+from repro_torch.models.sharding import POOL_HEAD_AXIS, unshard
 
 
 @dataclass
@@ -109,18 +120,30 @@ def _kv_tensor(x, device) -> torch.Tensor:
 
 class PagedPools:
     def __init__(self, spec: PoolSpec, with_data: bool = True,
-                 device="cuda", stage_blocks: int = 16):
+                 device="cuda", stage_blocks: int = 16, mesh=None):
         """``stage_blocks``: granularity of ``copy_in_staged`` — a swap-in
         larger than this many blocks is uploaded in stage-sized sub-slabs,
         so the host gather and upload of sub-slab k+1 overlap the scatter
         of sub-slab k on the device.  Each sub-slab counts as its own
-        staged call.  <= 0 disables the split."""
+        staged call.  <= 0 disables the split.
+
+        ``mesh``: a ``ServingMesh`` (None: one device, on ``device``).
+        The device pool is then one tensor per shard over its
+        ``Hkv / n_shards`` heads, on the shard's device, and every staged
+        swap runs per shard.  Shards must share one device."""
         self.spec = spec
         self.with_data = with_data
         self.stage_blocks = stage_blocks
-        self.device = torch.device(device)
-        self.n_shards = 1
+        check_one_device(mesh)
+        self.mesh = mesh
+        self.n_shards = 1 if mesh is None else mesh.n_shards
+        if spec.n_kv_heads % self.n_shards:
+            raise ValueError(f"{spec.n_kv_heads} KV heads do not divide over "
+                             f"{self.n_shards} shards")
+        self.device = (torch.device(device) if mesh is None
+                       else mesh.shards[0])
         # host-transfer accounting: each count is one device<->host hop
+        # (a staged chunk moves one per shard, each 1/n_shards the bytes)
         self.d2h_transfers = 0
         self.h2d_transfers = 0
         self.staged_out_calls = 0
@@ -129,26 +152,48 @@ class PagedPools:
         # target blocks was freed (``note_released``)
         self.fenced_swap_ins = 0
         self._pinned = self.device.type == "cuda"
-        # bookkeeping-only pools touch no device
+        # bookkeeping-only pools touch no device; per shard, its (out,
+        # h2d, scatter) streams
         cuda = self._pinned and with_data
-        self._out_stream = torch.cuda.Stream(self.device) if cuda else None
-        self._h2d_stream = torch.cuda.Stream(self.device) if cuda else None
-        self._scatter_stream = (torch.cuda.Stream(self.device) if cuda
-                                else None)
+        self._streams = [tuple(torch.cuda.Stream(self.device) if cuda
+                               else None for _ in range(3))
+                         for _ in range(self.n_shards)]
+        self._out_stream, self._h2d_stream, self._scatter_stream = \
+            self._streams[0]
         # block -> the event ``note_released`` recorded when it was freed
         self._released: Dict[int, torch.cuda.Event] = {}
         self._released_lock = threading.Lock()
         if with_data:
             s = spec
-            self.gpu = torch.zeros((s.n_layers, 2, s.num_gpu_blocks,
-                                    s.block_size, s.n_kv_heads, s.head_dim),
-                                   dtype=torch.bfloat16, device=self.device)
+            hs = s.n_kv_heads // self.n_shards
+            shape = (s.n_layers, 2, s.num_gpu_blocks, s.block_size, hs,
+                     s.head_dim)
+            if mesh is None:
+                self.gpu = torch.zeros(shape, dtype=torch.bfloat16,
+                                       device=self.device)
+            else:
+                self.gpu = [torch.zeros(shape, dtype=torch.bfloat16,
+                                        device=d) for d in mesh.shards]
             self.cpu, self._cpu_owner = _host_uint16(
                 (s.n_layers, 2, s.num_cpu_blocks, s.block_size,
                  s.n_kv_heads, s.head_dim), self._pinned)
         else:
             self.gpu = None
             self.cpu = None
+
+    def _shards(self) -> List[Tuple[torch.Tensor, slice]]:
+        """(pool, its heads of the host layout) per shard, in order."""
+        if self.mesh is None:
+            return [(self.gpu, slice(None))]
+        hs = self.spec.n_kv_heads // self.n_shards
+        return [(g, slice(i * hs, (i + 1) * hs))
+                for i, g in enumerate(self.gpu)]
+
+    def gpu_full(self) -> torch.Tensor:
+        """The device pool in the full (L, 2, nb, bs, Hkv, D) layout: the
+        pool itself on one device, the shards' heads concatenated in
+        order (a copy) under a mesh."""
+        return unshard([p for p, _ in self._shards()], POOL_HEAD_AXIS)
 
     def cpu_bf16(self) -> torch.Tensor:
         """The host pool reinterpreted as bfloat16 (a zero-copy torch view
@@ -202,7 +247,8 @@ class PagedPools:
             return
         idx = torch.as_tensor(np.asarray(gpu_blocks, np.int64),
                               device=self.device)
-        g = self.gpu[:, :, idx].cpu()
+        g = unshard([p[:, :, idx] for p, _ in self._shards()],
+                    POOL_HEAD_AXIS).cpu()
         self.cpu[:, :, np.asarray(cpu_blocks, np.int64)] = \
             g.view(torch.int16).numpy().view(np.uint16)
 
@@ -229,58 +275,67 @@ class PagedPools:
         """GPU -> CPU via the device staging slab: one run-copy gather
         coalesces ``gpu_runs`` [(start, n)] into a contiguous slab, then
         ONE d2h transfer moves the slab's used prefix; the host side is a
-        single vectorized store of the bf16 bit pattern.
+        single vectorized store of the bf16 bit pattern.  Under a mesh,
+        one gather and one d2h per shard, each over its heads.
 
-        On CUDA both run on the pool's ``out`` stream, after ``after``: an
-        event marking the pool writes the gather must see (default: the
-        caller's stream as it stands now).  Returns once the bytes are in
-        ``cpu``."""
+        On CUDA both run on the pool's ``out`` stream (each shard's own),
+        after ``after``: an event marking the pool writes the gather must
+        see (default: the caller's stream as it stands now).  Returns once
+        the bytes are in ``cpu``."""
         if not self.with_data or not gpu_runs:
             return
-        stream = self._out_stream
-        if stream is not None and after is None:
+        total = sum(n for _, n in gpu_runs)
+        if total != len(cpu_blocks):
+            raise ValueError(f"{total} GPU blocks vs {len(cpu_blocks)} CPU")
+        if self._out_stream is not None and after is None:
             after = self.compute_event()
         s = self.spec
-        done = None
-        with self._on(stream):
-            if stream is not None:
-                stream.wait_event(after)
-            slab, total = ops.gather_swap_runs(self.gpu, gpu_runs)
-            if total != len(cpu_blocks):
-                raise ValueError(f"{total} GPU blocks vs {len(cpu_blocks)} "
-                                 "CPU")
-            host, owner = _host_uint16((s.n_layers * 2, total, s.block_size,
-                                        s.n_kv_heads, s.head_dim),
-                                       self._pinned, zero=False)
-            owner.copy_(slab[:, :total].view(torch.int16),
-                        non_blocking=self._pinned)
-            if stream is not None:
-                done = torch.cuda.Event()
-                done.record(stream)
+        staged = []             # (host slab, its heads, its d2h's event)
+        for (pool, heads), (stream, _, _) in zip(self._shards(),
+                                                 self._streams):
+            done = None
+            with self._on(stream):
+                if stream is not None:
+                    stream.wait_event(after)
+                slab, _ = ops.gather_swap_runs(pool, gpu_runs)
+                host, owner = _host_uint16((s.n_layers * 2, total)
+                                           + tuple(slab.shape[2:]),
+                                           self._pinned, zero=False)
+                owner.copy_(slab[:, :total].view(torch.int16),
+                            non_blocking=self._pinned)
+                if stream is not None:
+                    done = torch.cuda.Event()
+                    done.record(stream)
+            staged.append((host, heads, done))
+            self.d2h_transfers += 1
         self.staged_out_calls += 1
-        self.d2h_transfers += 1
-        if done is not None:
-            done.synchronize()
-        self.cpu[:, :, np.asarray(cpu_blocks)] = host.reshape(
-            s.n_layers, 2, total, s.block_size, s.n_kv_heads, s.head_dim)
+        ids = np.asarray(cpu_blocks)
+        for host, heads, done in staged:
+            if done is not None:
+                done.synchronize()
+            self.cpu[:, :, ids, :, heads] = host.reshape(
+                (s.n_layers, 2) + host.shape[1:])
 
     def copy_in_staged(self, cpu_blocks: List[int],
                        gpu_runs: Sequence[Tuple[int, int]],
                        stage_blocks: Optional[int] = None) -> None:
         """CPU -> GPU via a host staging slab: a vectorized host gather,
         ONE h2d transfer per sub-slab, then a run-copy scatter into the
-        pool in place.  Callers must hold the engine's pool lock.
+        pool in place.  Callers must hold the engine's pool lock.  Under a
+        mesh, each sub-slab is one host gather, one h2d and one scatter
+        per shard, each over its heads.
 
         A call larger than ``stage_blocks`` (ctor default) is split into
         stage-sized sub-slabs, each its own staged call (``h2d_transfers
-        == staged_in_calls``).  On CUDA the uploads run on the pool's
-        ``h2d`` stream and the scatters on its ``scatter`` stream, each
-        scatter after its own upload's event; scatter k is issued once
-        upload k+1 is queued, so the upload of sub-slab k+1 runs while
-        sub-slab k scatters (and the host gathers sub-slab k+2).  The
-        scatters also wait for the release events of their target blocks
-        (``note_released``).  Returns once the last scatter's event has
-        completed: the bytes are resident, and the pinned slabs can go."""
+        == n_shards * staged_in_calls``).  On CUDA the uploads run on the
+        pool's ``h2d`` stream and the scatters on its ``scatter`` stream
+        (each shard's own), each scatter after its own upload's event;
+        scatter k is issued once upload k+1 is queued, so the upload of
+        sub-slab k+1 runs while sub-slab k scatters (and the host gathers
+        sub-slab k+2).  Every shard's scatters also wait for the release
+        events of their target blocks (``note_released``).  Returns once
+        the last scatters' events have completed: the bytes are resident,
+        and the pinned slabs can go."""
         if not self.with_data or not gpu_runs:
             return
         s = self.spec
@@ -293,78 +348,96 @@ class PagedPools:
         else:
             from repro_torch.kernels.block_copy import split_runs
             stages = split_runs(gpu_runs, stage)
-        up, sc = self._h2d_stream, self._scatter_stream
-        if sc is not None:
+        shards = self._shards()
+        if self._scatter_stream is not None:
             fences = self._release_fences(
                 b for start, n in gpu_runs for b in range(start, start + n))
-            for ev in fences:
-                sc.wait_event(ev)
+            for _, _, sc in self._streams:
+                for ev in fences:
+                    sc.wait_event(ev)
             self.fenced_swap_ins += bool(fences)
         C = s.n_layers * 2
+        hs = s.n_kv_heads // self.n_shards
         staging = []            # pinned slabs in flight until the last event
-        queued = None           # (device slab, its upload's event, runs)
+        queued = None           # (per shard (device slab, upload event), runs)
         pos = 0
         for runs_c in stages:
             cnt = sum(n for _, n in runs_c)
             n_slab = ops.slab_bucket_blocks(cnt)
-            slab, owner = _host_uint16(
-                (C, n_slab, s.block_size, s.n_kv_heads, s.head_dim),
-                self._pinned, zero=False)
-            # the pow2 pad tail is masked off by the run lengths, but it is
-            # uploaded and streamed through the kernel: zeros, not garbage
-            slab[:, cnt:] = 0
-            self._gather_host(cpu_blocks[pos:pos + cnt], slab)
+            uploads = []
+            for (_, heads), (_, up, _) in zip(shards, self._streams):
+                slab, owner = _host_uint16(
+                    (C, n_slab, s.block_size, hs, s.head_dim),
+                    self._pinned, zero=False)
+                # the pow2 pad tail is masked off by the run lengths, but it
+                # is uploaded and streamed through the kernel: zeros, not
+                # garbage
+                slab[:, cnt:] = 0
+                self._gather_host(cpu_blocks[pos:pos + cnt], slab,
+                                  None if self.mesh is None else heads)
+                uploaded = None
+                with self._on(up):
+                    dev = owner.to(self.device, non_blocking=self._pinned)
+                    if up is not None:
+                        uploaded = torch.cuda.Event()
+                        uploaded.record(up)
+                staging.append(owner)
+                uploads.append((dev, uploaded))
+                self.h2d_transfers += 1
             pos += cnt
-            uploaded = None
-            with self._on(up):
-                dev = owner.to(self.device, non_blocking=self._pinned)
-                if up is not None:
-                    uploaded = torch.cuda.Event()
-                    uploaded.record(up)
-            staging.append(owner)
             self.staged_in_calls += 1
-            self.h2d_transfers += 1
             if queued is not None:
                 self._scatter(*queued)
-            queued = (dev, uploaded, runs_c)
+            queued = (uploads, runs_c)
         self._scatter(*queued)
-        if sc is not None:
-            done = torch.cuda.Event()
-            done.record(sc)
-            done.synchronize()
+        for _, _, sc in self._streams:
+            if sc is not None:
+                done = torch.cuda.Event()
+                done.record(sc)
+                done.synchronize()
         staging.clear()
 
-    def _gather_host(self, cpu_blocks: Sequence[int],
-                     slab: np.ndarray) -> None:
+    def _gather_host(self, cpu_blocks: Sequence[int], slab: np.ndarray,
+                     heads: Optional[slice] = None) -> None:
         """slab[:, j] = the host pool's block ``cpu_blocks[j]`` in every
-        (layer, K/V) plane: one copy of each block into the staging slab
-        (numpy's ``cpu[:, :, ids]`` would gather into a temporary first),
-        with its index rules (a negative id counts from the end, one out
-        of range raises ``IndexError``)."""
+        (layer, K/V) plane, or its ``heads`` only (a shard's slab): one
+        copy of each block into the staging slab (numpy's
+        ``cpu[:, :, ids]`` would gather into a temporary first), with its
+        index rules (a negative id counts from the end, one out of range
+        raises ``IndexError``)."""
         nc = self.spec.num_cpu_blocks
         ids = np.asarray(cpu_blocks, np.int64)
         if ids.size and (ids.max() >= nc or ids.min() < -nc):
             raise IndexError(f"host block ids {cpu_blocks} out of range "
                              f"for {nc} blocks")
         C = slab.shape[0]
+        if heads is not None:
+            # numpy's take would copy the strided source whole first;
+            # index_select reads only the blocks it takes
+            src = torch.from_numpy(self.cpu.view(np.int16)).view(
+                (C, nc) + self.cpu.shape[3:])[..., heads, :]
+            idx = torch.from_numpy(ids % nc)
+            dst = torch.from_numpy(slab.view(np.int16))
+            for c in range(C):
+                torch.index_select(src[c], 0, idx, out=dst[c, :ids.size])
+            return
         src = self.cpu.reshape(C, nc, -1)
         dst = slab.reshape(C, slab.shape[1], -1)
         for c in range(C):
             np.take(src[c], ids, axis=0, out=dst[c, :ids.size], mode="wrap")
 
-    def _scatter(self, dev: torch.Tensor,
-                 uploaded: Optional[torch.cuda.Event],
-                 runs: Sequence[Tuple[int, int]]) -> None:
-        """One sub-slab's scatter into the pool, on the ``scatter``
-        stream after its upload's event (the slab, made on the ``h2d``
-        stream, is recorded as used there)."""
-        sc = self._scatter_stream
-        with self._on(sc):
-            if sc is not None:
-                sc.wait_event(uploaded)
-                dev.record_stream(sc)
-            self.gpu = ops.scatter_swap_runs(
-                self.gpu, dev.view(torch.bfloat16), runs)
+    def _scatter(self, uploads, runs: Sequence[Tuple[int, int]]) -> None:
+        """One sub-slab's scatter into each shard's pool, on the shard's
+        ``scatter`` stream after its upload's event (the slab, made on the
+        ``h2d`` stream, is recorded as used there).  Each pool is written
+        in place."""
+        for (pool, _), (dev, uploaded), (_, _, sc) in zip(
+                self._shards(), uploads, self._streams):
+            with self._on(sc):
+                if sc is not None:
+                    sc.wait_event(uploaded)
+                    dev.record_stream(sc)
+                ops.scatter_swap_runs(pool, dev.view(torch.bfloat16), runs)
 
     def write_tokens(self, block_ids: List[int], token_offset: int,
                      k, v) -> None:
@@ -402,7 +475,8 @@ class PagedPools:
             blocks = torch.as_tensor(list(block_ids[b0:b0 + nblk]),
                                      dtype=torch.long, device=self.device)
             kv = torch.stack([k, v], dim=1).reshape(L, 2, nblk, bs, H, D)
-            self.gpu[:, :, blocks] = kv
+            for pool, heads in self._shards():
+                pool[:, :, blocks] = kv[..., heads, :]
             return
         pieces = []
         for t0 in range(0, T, bs):
@@ -415,8 +489,9 @@ class PagedPools:
                     f"of block {tok // bs} ({bs} tokens a block)")
             pieces.append((t0, t1, block_ids[tok // bs], off))
         for t0, t1, blk, off in pieces:
-            self.gpu[:, 0, blk, off:off + (t1 - t0)] = k[:, t0:t1]
-            self.gpu[:, 1, blk, off:off + (t1 - t0)] = v[:, t0:t1]
+            for pool, heads in self._shards():
+                pool[:, 0, blk, off:off + (t1 - t0)] = k[:, t0:t1, heads]
+                pool[:, 1, blk, off:off + (t1 - t0)] = v[:, t0:t1, heads]
 
     def read_tokens(self, block_ids: List[int], n_tokens: int
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -428,7 +503,8 @@ class PagedPools:
         n_blocks = (n_tokens + bs - 1) // bs
         blocks = torch.as_tensor(list(block_ids[:n_blocks]), dtype=torch.long,
                                  device=self.device)
-        g = self.gpu[:, :, blocks]                  # (L, 2, nb, bs, H, D)
+        g = unshard([p[:, :, blocks] for p, _ in self._shards()],
+                    POOL_HEAD_AXIS)                 # (L, 2, nb, bs, H, D)
         L, _, nb, _, H, D = g.shape
         flat = g.reshape(L, 2, nb * bs, H, D)[:, :, :n_tokens]
         return flat[:, 0], flat[:, 1]

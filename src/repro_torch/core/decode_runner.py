@@ -1,6 +1,6 @@
 """Device-resident decode runner — the real-mode token hot path.
 
-Counterpart of ``repro/core/decode_runner.py`` (single device).
+Counterpart of ``repro/core/decode_runner.py``.
 The runner keeps the per-step decode state ON the device in fixed,
 bucketed shapes:
 
@@ -47,6 +47,14 @@ prefill_chunk_insert / prefill_finish / prefill_abort``): prompts run as
 pow2-bucketed position-masked chunks whose KV is carried chunk to chunk
 on the device and inserted block-aligned into the pool.
 
+Tensor parallelism: with a ``ServingMesh`` the runner holds per-shard
+parameter trees (``models/sharding.shard_params``) and steps the
+per-shard pools through the same ``paged_decode_step_device``; every shard
+runs inside the same per-bucket graph (the shards share one device, so
+one capture holds them all), and the chunked prefill runs the sharded
+chunk forward over per-shard carries.  The graph count is that of the
+one-device runner for the same workload.
+
 Row-occupancy invariant: a row is either *registered* (owned by a live
 request, block table = its pages) or *freed* (block table = trash page,
 context 0) — freed rows still execute the step, but their output is
@@ -66,8 +74,11 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import launches, ops
+from repro_torch.launch.mesh import check_one_device
 from repro_torch.models import prng
-from repro_torch.models.paged import paged_decode_step_device, sample_tokens
+from repro_torch.models.paged import (paged_decode_step_device,
+                                      sample_tokens, shardable_heads)
+from repro_torch.models.sharding import is_sharded, shard_params
 from repro_torch.models.transformer import serving_params
 
 
@@ -110,15 +121,23 @@ class _PrefillState:
     toks: List[int]                # tokens to process (hist, or hist[:-1])
     emit_first: bool
     pos: int = 0                   # real tokens already processed
-    k_carry: Optional[torch.Tensor] = None     # (L, S_pad, Hkv, D)
+    # (L, S_pad, Hkv, D); under a mesh, per-shard lists over local heads
+    k_carry: Optional[torch.Tensor] = None
     v_carry: Optional[torch.Tensor] = None
     last_logits: Optional[torch.Tensor] = None  # (V,) at the last real pos
     emitted: bool = False          # first token already appended to hist
 
 
 # the step's tensors, in ``paged_decode_step_device``'s order after params
+# (the pool a per-shard list of tensors under a mesh)
 STEP_TENSORS = ("pool", "block_tables", "context_lens", "tokens", "active",
                 "keys", "sampling")
+
+
+def _address(t):
+    """A tensor's data address; a per-shard list's, one per shard."""
+    return (tuple(p.data_ptr() for p in t) if is_sharded(t)
+            else t.data_ptr())
 
 
 _gc_lock = threading.Lock()
@@ -177,10 +196,10 @@ class _StepGraph:
     def __init__(self, step: Callable, tensors: Tuple[torch.Tensor, ...],
                  stream: Optional[torch.cuda.Stream]):
         self._step = step
-        self._ptrs = tuple(t.data_ptr() for t in tensors)
+        self._ptrs = tuple(_address(t) for t in tensors)
         self.graph = None
         self.launches: collections.Counter = collections.Counter()
-        if tensors[0].is_cuda:
+        if tensors[STEP_TENSORS.index("tokens")].is_cuda:
             self.graph = torch.cuda.CUDAGraph()
             with launches.capture() as self.launches, _gc_paused(), \
                     torch.cuda.stream(stream):
@@ -195,10 +214,10 @@ class _StepGraph:
     def check(self, tensors: Tuple[torch.Tensor, ...]) -> None:
         """Raise unless every tensor is at the address captured."""
         for name, t, ptr in zip(STEP_TENSORS, tensors, self._ptrs):
-            if t.data_ptr() != ptr:
+            if _address(t) != ptr:
                 raise RuntimeError(
                     f"decode step replayed over a {name} at "
-                    f"{t.data_ptr():#x}, captured over {ptr:#x}: the "
+                    f"{_address(t)}, captured over {ptr}: the "
                     f"{name} must be written in place for the bucket's life")
 
     def replay(self, tensors: Tuple[torch.Tensor, ...]) -> torch.Tensor:
@@ -216,15 +235,29 @@ class DecodeRunner:
     def __init__(self, model_bundle: dict, *, block_size: int,
                  trash_block: int, min_pages_bucket: int = 1,
                  temperature: float = 0.0, top_k: int = 0,
-                 top_p: float = 1.0, seed: int = 0):
+                 top_p: float = 1.0, seed: int = 0, mesh=None):
         self.mb = model_bundle
         self.bs = block_size
         self.trash = trash_block
         self._min_pages = max(1, min_pages_bucket)
+        # ``mesh``: a ``ServingMesh`` — the decode and prefill steps then
+        # run tensor-parallel over its model shards, with the q/k/v
+        # projections and the pool head-sharded (None: one device)
+        self._mesh = mesh
         # matmul weights cast to bf16 once (the values the layers' cast
         # at use would give)
         self._params = serving_params(model_bundle["params"])
-        self.device = self._params["embed"]["table"].device
+        if mesh is None:
+            self.device = self._params["embed"]["table"].device
+        else:
+            cfg = model_bundle["cfg"]
+            if not shardable_heads(cfg, mesh.n_shards):
+                raise ValueError(f"{cfg.name}: {cfg.n_heads} q / "
+                                 f"{cfg.n_kv_heads} kv heads do not divide "
+                                 f"over {mesh.n_shards} shards")
+            check_one_device(mesh)
+            self._params = shard_params(self._params, mesh)
+            self.device = mesh.shards[0]
         # the runner-wide default row of the per-row (B, 3) [temperature,
         # top_k, top_p] tensor, and the base key the per-row keys fold from
         self._default_sampling = np.asarray(
@@ -665,8 +698,8 @@ class DecodeRunner:
         st.last_logits, st.k_carry, st.v_carry, k_c, v_c = \
             ops.prefill_chunk(self._params, chunk, st.k_carry,
                               st.v_carry, st.pos, cfg=self.mb["cfg"],
-                              block_size=bs)
-        c_pad = k_c.shape[1]
+                              block_size=bs, mesh=self._mesh)
+        c_pad = (k_c[0] if self._mesh is not None else k_c).shape[1]
         n_pages = -(-n_tokens // bs)
         blocks = np.full((c_pad // bs,), self.trash, np.int32)
         b0 = st.pos // bs

@@ -184,18 +184,25 @@ class ServingEngine:
 
         self.model_bundle = model_bundle
         self.pools: Optional[PagedPools] = None
-        if config.mesh_shape != (1, 1):
-            raise NotImplementedError(
-                f"mesh_shape {config.mesh_shape}: the port serves on one "
-                "device; tensor parallelism is not ported yet")
+        # real-mode serving mesh: None at (1, 1), the one-device engine;
+        # otherwise the decode and prefill steps and the staged swap plane
+        # run tensor-parallel over its model shards.  Sim mode has no data
+        # plane and ignores ``mesh_shape``, as the reference does.  The
+        # bundle's optional ``mesh_devices`` lists the mesh's devices
+        # (repeats allowed: shards sharing one device)
+        self.mesh = None
         if config.mode == "real":
             assert model_bundle is not None, "real mode needs a model bundle"
+            from repro_torch.launch.mesh import make_serving_mesh
+            self.mesh = make_serving_mesh(config.mesh_shape,
+                                          model_bundle.get("mesh_devices"))
             cfg = model_bundle["cfg"]
             spec = PoolSpec.from_config(cfg, config.num_gpu_blocks,
                                         config.num_cpu_blocks,
                                         config.block_size)
             device = model_bundle["params"]["embed"]["table"].device
-            self.pools = PagedPools(spec, with_data=True, device=device)
+            self.pools = PagedPools(spec, with_data=True, device=device,
+                                    mesh=self.mesh)
             # a swap-in scattering into freed blocks orders behind the
             # device work issued before they were freed, and only that
             self.gpu_mgr.on_release = self.pools.note_released
@@ -262,7 +269,7 @@ class ServingEngine:
                 model_bundle, block_size=config.block_size,
                 trash_block=self._trash_block,
                 temperature=config.temperature, top_k=config.top_k,
-                top_p=config.top_p, seed=config.seed)
+                top_p=config.top_p, seed=config.seed, mesh=self.mesh)
         # serving-API surface: step outputs, event log, streaming
         self._outs: Dict[int, RequestOutput] = {}
         self.events: Optional[List[RequestEvent]] = [] if keep_events else None

@@ -100,7 +100,11 @@ def block_gather_runs(pool, slab0, src_starts, dst_starts, run_lens,
 
     pool: (C, nb, ...) and slab0: (C, n_slab, ...) with the same trailing
     block layout; ``run_blocks``: the grid's per-run extent (steps j >=
-    len copy nothing).  Writes ``slab0`` in place and returns it.
+    len copy nothing).  Writes ``slab0`` in place and returns it.  A
+    tensor-parallel shard's pool (C, nb, bs, Hkv / M, D) is such a layout:
+    its local heads are flattened into the block rows the kernel moves,
+    so one launch moves one shard's heads (reference
+    ``repro/kernels/block_copy.py:150-190``).
 
     CPU tensors take ``copy_runs_plain``; CUDA tensors launch the run-copy
     kernel over the C planes, after a pass that picks the last step

@@ -12,7 +12,8 @@ Counts are process-wide sums, safe to make from several threads at once
 (the front-end's replicas step on a thread each, and swap workers launch
 copies).  A wrapper that names the pool it works on (``count(wrapper,
 on=pool)``) is also counted per pool: ``on(wrapper, pool)`` reads the
-launches made on one engine's pool, so each replica's share is known.
+launches made on one engine's pool (summed over its shards under a
+mesh), so each replica's share is known.
 ``reset`` sets both to 0.
 """
 from __future__ import annotations
@@ -88,11 +89,13 @@ def replayed(tally: Counter) -> None:
         _on.update(getattr(tally, "on", {}))
 
 
-def on(wrapper, pool: torch.Tensor) -> int:
+def on(wrapper, pool) -> int:
     """Launches of ``wrapper``'s kernel counted on ``pool`` (by its
-    storage, so any view of the pool names it) since the last ``reset``."""
+    storage, so any view of the pool names it) since the last ``reset``;
+    summed over the shards of a per-shard pool list."""
+    pools = pool if isinstance(pool, (list, tuple)) else [pool]
     with _lock:
-        return _on[(wrapper, _storage(pool))]
+        return sum(_on[(wrapper, _storage(p))] for p in pools)
 
 
 def reset(*wrappers) -> None:

@@ -9,6 +9,14 @@ do.  Where the reference DONATES a buffer (the pool on a swap-in scatter
 or a prefill insert, the prefill carries) the port writes in place on the
 tensor it was given and returns it, so the call sites keep the reference's
 "rebind to the result" form.
+
+Under a tensor-parallel mesh (``launch/mesh.py``) the pool, the swap
+slabs and the prefill carries are per-shard lists over each shard's
+local heads (``models/sharding.py``).  The swap, insert and carry
+functions take such a list where the reference takes a head-sharded
+array, and run the one-shard function on each shard in turn: what the
+reference's ``shard_map`` (or GSPMD, for the insert and the carry seed)
+runs on every device.
 """
 from __future__ import annotations
 
@@ -21,13 +29,16 @@ from repro_torch.kernels import block_copy as _bc
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gla_scan as _gla
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.models.sharding import CARRY_HEAD_AXIS, is_sharded
 
 
 def paged_attention(q, k_pool, v_pool, block_tables, context_lens, scale,
-                    pages_per_compute_block: int = 1):
+                    pages_per_compute_block: int = 1,
+                    plan_kv_heads: int = 0):
     return _pa.paged_attention(q, k_pool, v_pool, block_tables, context_lens,
                                scale,
-                               pages_per_compute_block=pages_per_compute_block)
+                               pages_per_compute_block=pages_per_compute_block,
+                               plan_kv_heads=plan_kv_heads)
 
 
 def flash_attention(q, k, v, *, causal=True, block_q=128, block_k=128):
@@ -126,9 +137,13 @@ def gather_swap_runs(pool, runs: Sequence[Tuple[int, int]]):
 
     pool: (L, 2, nb, bs, Hkv, D), read only.  Returns (slab, n_blocks)
     where slab is (L*2, n_slab_pow2, bs, Hkv, D); blocks [n_blocks:] are
-    padding."""
+    padding.  A per-shard pool list gives the per-shard slabs, each over
+    its shard's heads (one transfer per shard)."""
     if not runs:
         raise ValueError("gather_swap_runs needs at least one run")
+    if is_sharded(pool):
+        slabs = [gather_swap_runs(p, runs)[0] for p in pool]
+        return slabs, int(sum(n for _, n in runs))
     src, dst, lens, _, n_slab, run_blocks = _pad_runs(runs)
     L, K, nb, bs, H, D = pool.shape
     slab = torch.zeros((L * K, n_slab, bs, H, D), dtype=pool.dtype,
@@ -142,10 +157,17 @@ def gather_swap_runs(pool, runs: Sequence[Tuple[int, int]]):
 def scatter_swap_runs(pool, slab, runs: Sequence[Tuple[int, int]]):
     """Run-coalesced staged swap-in scatter: copy slab blocks [0, total)
     into the pool blocks named by ``runs``, in place on ``pool`` (the
-    reference donates it).  slab: (L*2, n_slab_pow2, bs, Hkv, D).
-    Returns ``pool``."""
+    reference donates it).  slab: (L*2, n_slab_pow2, bs, Hkv, D).  A
+    per-shard pool list takes the per-shard slabs, each shard scattering
+    its local heads.  Returns ``pool``."""
     if not runs:
         raise ValueError("scatter_swap_runs needs at least one run")
+    if is_sharded(pool):
+        if len(slab) != len(pool):
+            raise ValueError(f"{len(slab)} slabs for {len(pool)} shards")
+        for p, sl in zip(pool, slab):
+            scatter_swap_runs(p, sl, runs)
+        return pool
     src, dst, lens, _, n_slab, run_blocks = _pad_runs(runs)
     if slab.shape[1] != n_slab:
         raise ValueError(f"slab holds {slab.shape[1]} blocks, the runs' "
@@ -165,7 +187,12 @@ def insert_prefill(pool, k, v, blocks, block_size: int):
     pool: (L, 2, nb, bs, Hkv, D); k, v: (L, T_pad, Hkv, D) with
     T_pad == len(blocks) * block_size (pad pages point at the trash
     block, the partial last real page is zero-padded — both beyond the
-    context length).  blocks: (P,) page ids."""
+    context length).  blocks: (P,) page ids.  A per-shard pool list takes
+    per-shard K/V lists (each over its shard's heads)."""
+    if is_sharded(pool):
+        for p, ks, vs in zip(pool, k, v):
+            insert_prefill(p, ks, vs, blocks, block_size)
+        return pool
     L, T, H, D = k.shape
     P = T // block_size
     idx = to_device(np.asarray(blocks, np.int64), pool.device)
@@ -179,9 +206,22 @@ def insert_prefill(pool, k, v, blocks, block_size: int):
 # ---------------------------------------------------------------------------
 
 
+def _zeros_carry(shape, device, mesh=None):
+    """A zeroed bf16 prefill carry of the global ``shape``; with ``mesh``,
+    the per-shard carries over each shard's heads, on its device."""
+    if mesh is None:
+        return torch.zeros(shape, dtype=torch.bfloat16, device=device)
+    local = list(shape)
+    local[CARRY_HEAD_AXIS] //= mesh.n_shards
+    return [torch.zeros(local, dtype=torch.bfloat16, device=d)
+            for d in mesh.shards]
+
+
 def _grow_carry(carry, *, n_new: int):
     """Copy a (L, S_old, H, D) prefill carry into a longer zeroed buffer
-    (pow2 token bucket)."""
+    (pow2 token bucket); per-shard carries each."""
+    if is_sharded(carry):
+        return [_grow_carry(c, n_new=n_new) for c in carry]
     out = torch.zeros(carry.shape[:1] + (n_new,) + carry.shape[2:],
                       dtype=carry.dtype, device=carry.device)
     out[:, :carry.shape[1]] = carry
@@ -190,12 +230,15 @@ def _grow_carry(carry, *, n_new: int):
 
 def _slice_tokens(kv, start: int, *, n: int):
     """(L, S_pad, H, D)[:, start:start+n] as a tensor of its own (the
-    carry is written in place by later chunks)."""
+    carry is written in place by later chunks); per shard for per-shard
+    carries."""
+    if is_sharded(kv):
+        return [_slice_tokens(c, start, n=n) for c in kv]
     return kv[:, start:start + n].clone()
 
 
 def prefill_chunk(params, tokens: Sequence[int], k_carry, v_carry,
-                  prefix_len: int, *, cfg, block_size: int):
+                  prefix_len: int, *, cfg, block_size: int, mesh=None):
     """Bucketed wrapper around ``models.paged.prefill_kv_chunk``: pad the
     chunk to a pow2 token bucket (>= one page so the pool insert stays
     block-aligned), grow the carry buffers to a pow2 bucket holding
@@ -205,12 +248,16 @@ def prefill_chunk(params, tokens: Sequence[int], k_carry, v_carry,
     ``k_carry``/``v_carry``: None to start a prefill, else the buffers
     returned by the previous chunk (written in place — rebind).  Returns
     (last_logits, k_carry', v_carry', k_chunk, v_chunk) where k_chunk /
-    v_chunk are (L, chunk_pad, Hkv, D) ready for ``insert_prefill``."""
+    v_chunk are (L, chunk_pad, Hkv, D) ready for ``insert_prefill``.
+    With ``mesh`` (``params`` then the per-shard trees of
+    ``sharding.shard_params``) the carries and chunks are per-shard lists
+    over each shard's heads (the reference's sharded chunk forward)."""
     from repro_torch.models.paged import prefill_kv_chunk
     n = len(tokens)
     if n <= 0:
         raise ValueError("prefill_chunk needs at least one token")
-    device = params["embed"]["table"].device
+    rep = params if mesh is None else params[0]
+    device = rep["embed"]["table"].device
     c_pad = max(_next_pow2(n), block_size)
     toks = np.zeros((1, c_pad), np.int64)
     toks[0, :n] = tokens
@@ -218,9 +265,9 @@ def prefill_chunk(params, tokens: Sequence[int], k_carry, v_carry,
     if k_carry is None:
         s_pad = _next_pow2(need)
         shape = (cfg.n_layers, s_pad, cfg.n_kv_heads, cfg.resolved_head_dim)
-        k_carry = torch.zeros(shape, dtype=torch.bfloat16, device=device)
-        v_carry = torch.zeros(shape, dtype=torch.bfloat16, device=device)
-    elif k_carry.shape[1] < need:
+        k_carry = _zeros_carry(shape, device, mesh)
+        v_carry = _zeros_carry(shape, device, mesh)
+    elif (k_carry[0] if mesh is not None else k_carry).shape[1] < need:
         s_pad = _next_pow2(need)
         k_carry = _grow_carry(k_carry, n_new=s_pad)
         v_carry = _grow_carry(v_carry, n_new=s_pad)
@@ -240,7 +287,12 @@ def seed_prefill_carry(pool, block_ids: Sequence[int], start_tokens: int,
     ``start_tokens`` must be block-aligned; the gathered page list is
     pow2-padded with trash pages whose rows sit at positions >=
     start_tokens and are overwritten by the chunk writes before any real
-    query attends them.  Returns (k_carry, v_carry)."""
+    query attends them.  Returns (k_carry, v_carry); per-shard lists for a
+    per-shard pool list, each gathered from its shard's pool."""
+    if is_sharded(pool):
+        seeded = [seed_prefill_carry(p, block_ids, start_tokens, trash=trash)
+                  for p in pool]
+        return [k for k, _ in seeded], [v for _, v in seeded]
     bs = pool.shape[3]
     if start_tokens <= 0 or start_tokens % bs:
         raise ValueError(f"start_tokens {start_tokens} is not a positive "

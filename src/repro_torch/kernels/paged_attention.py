@@ -65,9 +65,11 @@ def _sm_count(index: int) -> int:
 
 
 def paged_attention_plain(q, k_pool, v_pool, block_tables, context_lens,
-                          scale: float, pages_per_compute_block: int = 1):
+                          scale: float, pages_per_compute_block: int = 1,
+                          plan_kv_heads: int = 0):
     """Plain PyTorch version: gather the (padded) table's pages, mask
-    positions >= ctx with -1e30 and take one fp32 softmax.
+    positions >= ctx with -1e30 and take one fp32 softmax (no split-KV
+    partition, so ``plan_kv_heads`` changes nothing).
 
     q: (B, Hq, D); k_pool/v_pool: (nb, bs, Hkv, D); block_tables:
     (B, n_pages) int; context_lens: (B,) int.  Returns (B, Hq, D) in q's
@@ -128,9 +130,16 @@ def _check_cuda_args(q, k_pool, v_pool, block_tables, context_lens):
 
 
 def paged_attention(q, k_pool, v_pool, block_tables, context_lens,
-                    scale: float, pages_per_compute_block: int = 1):
+                    scale: float, pages_per_compute_block: int = 1,
+                    plan_kv_heads: int = 0):
     """q: (B, Hq, D); k_pool/v_pool: (nb, bs, Hkv, D); block_tables:
     (B, n_pages) int32; context_lens: (B,) int32.  Returns (B, Hq, D).
+
+    ``plan_kv_heads``: the KV head count ``split_plan`` sizes the split-KV
+    partition for (0: the pool's).  A tensor-parallel shard holds Hkv / M
+    heads and passes the unsharded count, so each (row, head) CTA walks
+    the splits, and sums in the order, it does in the one-device launch.
+    The plain version has no partition and ignores it.
 
     CPU tensors take ``paged_attention_plain``; CUDA tensors launch the
     kernel on the current stream (and count the launch in
@@ -149,7 +158,7 @@ def paged_attention(q, k_pool, v_pool, block_tables, context_lens,
     if B == 0:
         return out
     npp = _padded_pages(n_pages, pages_per_compute_block)
-    n_splits, chunk = split_plan(B, Hkv, npp * bs, bs,
+    n_splits, chunk = split_plan(B, plan_kv_heads or Hkv, npp * bs, bs,
                                  _sm_count(q.device.index))
     # per split: fp32 m and l of each query head and its (D,) partial O
     ws = (torch.empty(B * Hq * n_splits * (D + 2), dtype=torch.float32,

@@ -60,8 +60,8 @@ the online run adds each conversation's token history
   #   {"op": "drain"}                                      (graceful stop)
 
 Every mode of the reference's launcher is served.  The engine's
-tensor-parallel mesh (``EngineConfig.mesh_shape``), which no launcher
-flag sets, is not ported: the port serves on one device.
+tensor-parallel mesh (``EngineConfig.mesh_shape``) is served by the engine
+(``launch/mesh.py``); as in the reference, no launcher flag sets it.
 """
 from __future__ import annotations
 

@@ -21,6 +21,18 @@ The exact-shape ``paged_decode_step`` and ``prefill_kv`` run eagerly at
 the shapes they are given: the parity reference and the engine's greedy
 oracle, not the serving path.
 
+Tensor parallelism (the reference's ``shard_map`` steps, ``:263-444``):
+the decode step and the chunk forward take per-shard lists where the
+mesh shards them (``models/sharding.py``): the parameter trees of
+``shard_params``, the per-shard pools or carries over each shard's
+local heads.  One body serves both paths, as in the reference: per
+layer, each shard projects, rotates and writes its local heads and runs
+the paged attention over them; the head outputs are concatenated in
+shard order (the reference's all-gather) before the replicated ``wo``,
+MLP or MoE and norms, which run once (the shards share one device,
+``launch/mesh.py``).  A tensor (not a list) is the one-device path, the
+code that ran before the mesh.
+
 Sampling (temperature / top-k / top-p) is fused into the step as in the
 reference, with the reference's random streams (``models/prng.py``).  The
 reference keeps an all-greedy step argmax-only through a batch-level
@@ -39,6 +51,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import prng
+from repro_torch.models.sharding import is_sharded, unshard
 from repro_torch.models.transformer import (check_supported, ffn,
                                             forward_seq, unstack_layers)
 
@@ -69,16 +82,59 @@ def page_tile(n_pages: int) -> int:
     return 1
 
 
+def shardable_heads(cfg: ModelConfig, n_shards: int) -> bool:
+    """True when ``cfg``'s q and kv heads divide evenly over ``n_shards``
+    model shards (the head-sharded serving layout's precondition)."""
+    return (n_shards >= 1 and cfg.n_heads % n_shards == 0
+            and cfg.n_kv_heads % n_shards == 0)
+
+
+def shard_local_config(cfg: ModelConfig, n_shards: int) -> ModelConfig:
+    """The per-shard view of ``cfg`` under ``n_shards``-way tensor
+    parallelism over heads: q and kv head counts divided by the shard
+    count (the GQA grouping kept), ``head_dim`` pinned to the resolved
+    value so the division never changes it."""
+    import dataclasses
+    if n_shards == 1:
+        return cfg
+    if not shardable_heads(cfg, n_shards):
+        raise ValueError(f"{cfg.name}: {cfg.n_heads} q / {cfg.n_kv_heads} kv "
+                         f"heads do not divide over {n_shards} shards")
+    return dataclasses.replace(
+        cfg, n_heads=cfg.n_heads // n_shards,
+        n_kv_heads=cfg.n_kv_heads // n_shards,
+        head_dim=cfg.resolved_head_dim)
+
+
+def _shards(params, buffers):
+    """(per-shard parameter trees, per-shard buffers, the replicated
+    tree): a one-device call's single tree and tensor as one shard."""
+    if not is_sharded(buffers):
+        return [params], [buffers], params
+    if len(params) != len(buffers):
+        raise ValueError(f"{len(params)} parameter trees for "
+                         f"{len(buffers)} shards")
+    return list(params), list(buffers), params[0]
+
+
 def _decode_hidden(params, pool, block_tables, context_lens, tokens,
                    cfg: ModelConfig):
     """Shared decode body up to the final norm: one token per row through
     the paged pool.  Returns (x_last (B, d), pool) — the pool is written
-    in place (each row's new K/V at position ``context_lens``)."""
+    in place (each row's new K/V at position ``context_lens``).
+
+    ``pool`` a per-shard list (and ``params`` the per-shard trees): each
+    shard's projections, KV write and paged attention run over its local
+    heads (``shard_local_config``), each attention launch on the
+    one-device split-KV plan (``plan_kv_heads``), so each (row, head)
+    walks the splits it walks in the one-device launch."""
     check_paged(cfg)
+    shards, pools, rep = _shards(params, pool)
+    local = shard_local_config(cfg, len(shards))
     B = tokens.shape[0]
-    bs = pool.shape[3]
+    bs = pools[0].shape[3]
     n_pages = block_tables.shape[1]
-    x = L.embed(params["embed"], tokens[:, None])          # (B, 1, d)
+    x = L.embed(rep["embed"], tokens[:, None])             # (B, 1, d)
     # the rotary tables of the step's positions, once for every layer
     cos, sin = L.rope_tables(context_lens[:, None], cfg.resolved_head_dim,
                              cfg.rope_theta)
@@ -92,26 +148,32 @@ def _decode_hidden(params, pool, block_tables, context_lens, tokens,
     # rows that share a slot (freed rows all write the trash block's first
     # slot) write the last such row's K/V, so the write does not depend on
     # the launch's order (a MoE row's K/V depends on the rows before it
-    # through capacity); every live row owns its slot
+    # through capacity); every live row owns its slot.  Every shard writes
+    # the same row's heads there.
     slot = blk * bs + off
     rows = torch.arange(B, device=slot.device)
     last = torch.where(slot[:, None] == slot[None, :], rows, -1).amax(dim=1)
     ctx1 = context_lens + 1
-    for layer, lp in enumerate(unstack_layers(params["layers"])):
-        pool_l = pool[layer]                               # (2, nb, bs, H, D)
+    layers = [unstack_layers(p["layers"]) for p in shards]
+    for layer, lp in enumerate(layers[0]):
         h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        q, k, v = attn._project_qkv(lp["attn"], h, cfg)
-        q = L.rope_apply(q, cos, sin)
-        k = L.rope_apply(k, cos, sin)
-        pool_l[0, blk, off] = k[last, 0].to(pool.dtype)
-        pool_l[1, blk, off] = v[last, 0].to(pool.dtype)
-        a = ops.paged_attention(q[:, 0].contiguous(), pool_l[0], pool_l[1],
-                                block_tables, ctx1, scale,
-                                pages_per_compute_block=ppcb)
+        parts = []
+        for shard, shard_pool in zip(layers, pools):
+            pool_l = shard_pool[layer]                     # (2, nb, bs, H, D)
+            q, k, v = attn._project_qkv(shard[layer]["attn"], h, local)
+            q = L.rope_apply(q, cos, sin)
+            k = L.rope_apply(k, cos, sin)
+            pool_l[0, blk, off] = k[last, 0].to(pool_l.dtype)
+            pool_l[1, blk, off] = v[last, 0].to(pool_l.dtype)
+            parts.append(ops.paged_attention(
+                q[:, 0].contiguous(), pool_l[0], pool_l[1], block_tables,
+                ctx1, scale, pages_per_compute_block=ppcb,
+                plan_kv_heads=cfg.n_kv_heads))
+        a = unshard(parts, 1)
         x = x + (a.reshape(B, 1, -1) @ lp["attn"]["wo"].to(x.dtype))
         h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
         x = x + ffn(lp, h, cfg)
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    x = L.rmsnorm(rep["final_norm"], x, cfg.norm_eps)
     return x[:, 0], pool
 
 
@@ -176,6 +238,29 @@ def sample_tokens(logits, keys, ctx, sampling, *, sampled: bool = True):
     return torch.where(temp > 0.0, drawn, greedy)
 
 
+def vocab_slices(table, x_last, n_shards: int):
+    """The shards' logits of the reference's vocab-sharded unembed: shard s
+    multiplies ``x_last`` (B, d) by its ``V / n_shards`` rows of ``table``
+    (V, d), V divisible by ``n_shards``.  Returns n (B, V / n) fp32."""
+    vs = table.shape[0] // n_shards
+    return [L.unembed(None, x_last, table=table[s * vs:(s + 1) * vs])
+            for s in range(n_shards)]
+
+
+def vocab_sharded_greedy(table, x_last, n_shards: int) -> torch.Tensor:
+    """The argmax of ``x_last @ table.T`` from the shards' vocab slices
+    (``vocab_slices``): each shard's (max, argmax + its offset), then the
+    first shard holding the maximum, so a tie goes to the lowest index,
+    as one argmax over the full logits gives.  Returns (B,) int32."""
+    local = vocab_slices(table, x_last, n_shards)
+    vs = local[0].shape[1]
+    vals = torch.stack([lg.amax(dim=-1) for lg in local])              # (n, B)
+    idxs = torch.stack([torch.argmax(lg, dim=-1) + s * vs
+                        for s, lg in enumerate(local)])                # (n, B)
+    best = torch.argmax(vals, dim=0)                       # first max wins
+    return idxs.gather(0, best[None, :])[0].to(torch.int32)
+
+
 def _device_step_core(params, pool, block_tables, context_lens, tokens,
                       active, keys, sampling, cfg: ModelConfig,
                       sampled: bool = True):
@@ -183,13 +268,26 @@ def _device_step_core(params, pool, block_tables, context_lens, tokens,
     ``pool``, ``context_lens`` and ``tokens`` are updated in place.  The
     runner captures this body as a CUDA graph per bucket and variant, so
     it must not synchronise with the host: every launch follows from
-    shapes and ``sampled`` alone."""
+    shapes and ``sampled`` alone.
+
+    With per-shard lists over n > 1 shards and a vocabulary divisible by
+    n, the unembed is vocab-sharded as in the reference: the argmax-only
+    variant combines the shards' (max, argmax) pairs
+    (``vocab_sharded_greedy``), the sampled variant concatenates the
+    shards' logits and samples them once; otherwise it is replicated."""
     x_last, pool = _decode_hidden(params, pool, block_tables, context_lens,
                                   tokens, cfg)
-    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    logits = L.unembed(head, x_last)
-    nxt = sample_tokens(logits, keys, context_lens, sampling,
-                        sampled=sampled)
+    shards, _, rep = _shards(params, pool)
+    n = len(shards)
+    head = rep["embed"] if cfg.tie_embeddings else rep["lm_head"]
+    vocab_sharded = n > 1 and cfg.vocab_size % n == 0
+    if vocab_sharded and not sampled:
+        nxt = vocab_sharded_greedy(head["table"], x_last, n)
+    else:
+        logits = (unshard(vocab_slices(head["table"], x_last, n), 1)
+                  if vocab_sharded else L.unembed(head, x_last))
+        nxt = sample_tokens(logits, keys, context_lens, sampling,
+                            sampled=sampled)
     context_lens.add_(active.to(context_lens.dtype))
     tokens.copy_(torch.where(active, nxt, tokens))
     return nxt, pool, context_lens, tokens
@@ -208,7 +306,13 @@ def paged_decode_step_device(params, pool, block_tables, context_lens,
     per-row [temperature, top_k, top_p]; ``sampled=False``: the
     argmax-only variant, valid when no row has temperature > 0.  pool,
     context_lens and tokens are written in place (the reference donates
-    them).  Returns (next_tokens, pool, context_lens, tokens)."""
+    them).  Returns (next_tokens, pool, context_lens, tokens).
+
+    The mesh-sharded step (the reference's
+    ``paged_decode_step_device_sharded``, ``:285-324``) is this one with
+    ``params`` the per-shard trees of ``sharding.shard_params`` and
+    ``pool`` the per-shard pools (L, 2, nb, bs, Hkv / M, D), every one
+    written in place."""
     return _device_step_core(params, pool, block_tables, context_lens,
                              tokens, active, keys, sampling, cfg, sampled)
 
@@ -231,35 +335,44 @@ def _prefill_chunk_core(params, tokens, k_carry, v_carry, prefix_len: int,
     holding the earlier chunks' K/V.  The chunk's K/V is written into the
     carries at ``prefix_len`` BEFORE attention, so query i (position
     prefix_len + i) attends keys [0, prefix_len + i] of one buffer.
+    Per-shard carries (and ``params`` the per-shard trees): each shard
+    runs its local heads, the head outputs concatenated before ``wo``.
     Returns (last_logits (V,) at position prefix_len + chunk_len - 1,
     k_carry, v_carry)."""
     check_paged(cfg)
+    shards, k_carries, rep = _shards(params, k_carry)
+    v_carries = list(v_carry) if is_sharded(v_carry) else [v_carry]
+    local = shard_local_config(cfg, len(shards))
     B, C_pad = tokens.shape
-    S_pad = k_carry.shape[1]
+    S_pad = k_carries[0].shape[1]
     dev = tokens.device
-    x = L.embed(params["embed"], tokens)                   # (1, C_pad, d)
+    x = L.embed(rep["embed"], tokens)                      # (1, C_pad, d)
     positions = prefix_len + torch.arange(C_pad, device=dev)[None, :]
     cos, sin = L.rope_tables(positions, cfg.resolved_head_dim,
                              cfg.rope_theta)
     scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
     mask = (torch.arange(S_pad, device=dev)[None, :]
             <= positions[0][:, None])[None, None]          # (1,1,C_pad,S_pad)
-    for layer, lp in enumerate(unstack_layers(params["layers"])):
-        kc, vc = k_carry[layer], v_carry[layer]            # (S_pad, H, D)
+    layers = [unstack_layers(p["layers"]) for p in shards]
+    for layer, lp in enumerate(layers[0]):
         h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        q, k, v = attn._project_qkv(lp["attn"], h, cfg)
-        q = L.rope_apply(q, cos, sin)
-        k = L.rope_apply(k, cos, sin)
-        kc[prefix_len:prefix_len + C_pad] = k[0]
-        vc[prefix_len:prefix_len + C_pad] = v[0]
-        a = attn._sdpa(q, kc[None], vc[None], mask, scale)
+        parts = []
+        for shard, kcs, vcs in zip(layers, k_carries, v_carries):
+            kc, vc = kcs[layer], vcs[layer]                # (S_pad, H, D)
+            q, k, v = attn._project_qkv(shard[layer]["attn"], h, local)
+            q = L.rope_apply(q, cos, sin)
+            k = L.rope_apply(k, cos, sin)
+            kc[prefix_len:prefix_len + C_pad] = k[0]
+            vc[prefix_len:prefix_len + C_pad] = v[0]
+            parts.append(attn._sdpa(q, kc[None], vc[None], mask, scale))
+        a = unshard(parts, 2)
         x = x + (a.reshape(B, C_pad, -1) @ lp["attn"]["wo"].to(x.dtype))
         h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
         x = x + ffn(lp, h, cfg)
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    x = L.rmsnorm(rep["final_norm"], x, cfg.norm_eps)
     # unembed ONLY the last real position
     x_last = x[0, chunk_len - 1:chunk_len]                 # (1, d)
-    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    head = rep["embed"] if cfg.tie_embeddings else rep["lm_head"]
     return L.unembed(head, x_last)[0], k_carry, v_carry
 
 
@@ -268,6 +381,8 @@ def prefill_kv_chunk(params, tokens, k_carry, v_carry, prefix_len: int,
     """One chunk of a position-masked chunked prefill (see
     ``_prefill_chunk_core``); the carries are written in place (the
     reference donates them).  ``kernels.ops.prefill_chunk`` owns the
-    pow2 bucketing of C_pad and S_pad."""
+    pow2 bucketing of C_pad and S_pad.  With the per-shard trees and
+    per-shard carries (L, S_pad, Hkv / M, D), the mesh-sharded chunk
+    forward (the reference's ``prefill_kv_chunk_sharded``)."""
     return _prefill_chunk_core(params, tokens, k_carry, v_carry,
                                prefix_len, chunk_len, cfg)

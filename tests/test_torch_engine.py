@@ -215,8 +215,15 @@ def test_real_storm_matches_reference(bundles, storm):
 def test_port_refuses_what_it_does_not_serve(bundles):
     _, tb = bundles
     cfg = _storm_cfg(EngineConfig)
-    with pytest.raises(NotImplementedError):
-        ServingEngine(replace(cfg, mesh_shape=(1, 2)), model_bundle=tb)
+    # a mesh is served now: the default device list (the CUDA devices
+    # present) that is too short is refused with the reference's
+    # ValueError, and shards on more than one device are not served
+    with pytest.raises(ValueError, match="devices"):
+        ServingEngine(replace(cfg, mesh_shape=(1, 64)), model_bundle=tb)
+    with pytest.raises(NotImplementedError, match="2 devices"):
+        ServingEngine(replace(cfg, mesh_shape=(1, 2)),
+                      model_bundle={**tb, "mesh_devices": ["cuda:0",
+                                                           "cuda:1"]})
     # the prefix cache is served now, and refused where the reference
     # refuses it: in sim mode and under a policy without reuse
     assert ServingEngine(replace(cfg, prefix_cache=True),
