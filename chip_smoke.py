@@ -262,6 +262,23 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                profiler's count of each must equal the wrapper's count,
                replays included.
 
+  7. dryrun  — the dry-run and roofline tools: ``python -m
+               repro_torch.launch.dryrun --all`` (every arch x shape on
+               the 16 x 16 mesh, traced over DTensors on a fake process
+               group; the 2 x 16 x 16 mesh's train cases trace for minutes
+               each, so it is left to the CLI; CPU only, started in
+               the background after phase 2 in ``DRYRUN_JOBS`` processes at
+               a lower priority): ok, skipped (the long_500k rule only) and
+               failed cases counted, none may fail; ``--serving`` at full
+               width on the card (three requests, one aborted: its tokens,
+               decode-graph variants and kernel launches); and on a (1, 1)
+               host mesh, qwen2-1.5b's train step (B 8 x T 128) and its
+               contiguous-cache decode step (B 8 against 128 positions):
+               the dry-run's argument bytes equal to the real steps'
+               tensors' bytes, its roofline floor (max of the compute and
+               memory terms) at most the measured step, and the peak
+               allocated beside arguments plus the temp estimate.
+
 Then a ``kernels`` line (per kernel: launches on its path, error, times
 around the call and on the device, bound, and the bound's share of the
 device time; the serving kernels' launches on each path beside the
@@ -4200,7 +4217,9 @@ def mesh_prefill(eng, params, sizes=(256, 352)) -> dict:
     empty carries: the last logits' largest difference and argmaxes, and
     whether the carries (the shards' concatenated) and layer 0's K (which
     the q/k/v products over column slices alone feed) are byte-equal.
-    Reported, not held: the engine runs' tokens are."""
+    Held byte-equal (logits and carries): the shards' attention runs as
+    one product over all their heads, the one-device product."""
+    import torch
     from repro_torch.kernels import ops
     from repro_torch.models.sharding import CARRY_HEAD_AXIS, unshard
     cfg = eng.runner.mb["cfg"]
@@ -4220,6 +4239,11 @@ def mesh_prefill(eng, params, sizes=(256, 352)) -> dict:
             "layer0_k_byte_equal": _bytes_equal(k[0], one[1][0]),
             "k_max_abs_diff": float((k.float() - one[1].float())
                                     .abs().max())}
+        r = out[n_tokens]
+        if not (r["k_byte_equal"] and r["v_byte_equal"]
+                and torch.equal(sh[0], one[0])):
+            raise AssertionError(f"the sharded prefill chunk of {n_tokens} "
+                                 f"tokens parts from the one-device one: {r}")
     return out
 
 
@@ -4462,6 +4486,253 @@ def mesh_phase(device, qcfg=None, ocfg=None) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the dry-run and roofline tools
+# ---------------------------------------------------------------------------
+
+# the dry-run's mesh cases on the production meshes, CPU-only: started in
+# the background at the beginning of the run (``start_dryrun_all``) and
+# read in phase 7; its worker processes run at a lower priority than
+# this process
+DRYRUN_JOBS = 4
+# the one shape the reference skips a case for (``specs.supports_case``)
+DRYRUN_SKIP_RULE = "long_500k rule"
+# the (1, 1) cross-check: the train phase's shape and a contiguous-cache
+# decode of the same batch against a cache of as many positions
+CROSS_BATCH, CROSS_SEQ = 8, 128
+
+
+def _dryrun_cmd(*args) -> list:
+    return [sys.executable, "-m", "repro_torch.launch.dryrun", *args]
+
+
+def _dryrun_env() -> dict:
+    import os
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+
+
+def start_dryrun_all(out_dir: Path, multi_pod: str = "off",
+                     jobs: int = DRYRUN_JOBS, extra=()):
+    """``python -m repro_torch.launch.dryrun --all`` on the production
+    meshes, in the background at a lower priority (it needs no device);
+    returns (process, output JSON path, start time)."""
+    import os
+    out = out_dir / "dryrun_all.json"
+    proc = subprocess.Popen(
+        _dryrun_cmd("--all", "--multi-pod", multi_pod, "--jobs", str(jobs),
+                    "--out", str(out), *extra),
+        cwd=ROOT, env=_dryrun_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        preexec_fn=lambda: os.nice(19))
+    return proc, out, time.perf_counter()
+
+
+def dryrun_counts(stdout: str) -> dict:
+    """The dry-run's printed cases: OK, SKIP and FAIL lines counted, and
+    the failed and skipped cases' lines."""
+    lines = stdout.splitlines()
+    ok = [ln for ln in lines if ln.startswith("OK   ")]
+    skip = [ln for ln in lines if ln.startswith("SKIP ")]
+    fail = [ln for ln in lines if ln.startswith("FAIL ")]
+    return {"ok": len(ok), "skipped": len(skip), "failed": len(fail),
+            "failed_cases": fail, "skipped_cases": skip}
+
+
+def check_dryrun_all(stdout: str, returncode: int) -> dict:
+    """Raise where a mesh case failed, the dry-run exited non-zero, or a
+    case was skipped for another reason than the reference's long_500k
+    rule; returns ``dryrun_counts``."""
+    counts = dryrun_counts(stdout)
+    if counts["failed"] or returncode != 0:
+        raise AssertionError(f"the dry-run exited {returncode} with "
+                             f"{counts['failed']} failed case(s): "
+                             f"{counts['failed_cases'][:5]}")
+    other = [ln for ln in counts["skipped_cases"]
+             if DRYRUN_SKIP_RULE not in ln]
+    if other:
+        raise AssertionError(f"cases skipped by another rule: {other}")
+    if not counts["ok"]:
+        raise AssertionError("the dry-run ran no case")
+    return counts
+
+
+def check_argument_bytes(dry_bytes: int, tensors) -> int:
+    """The bytes of ``tensors`` (the real step's arguments), which must
+    equal the dry-run's per-device argument bytes on a (1, 1) mesh."""
+    real = sum(t.numel() * t.element_size() for t in tensors)
+    if real != dry_bytes:
+        raise AssertionError(f"the dry-run counts {dry_bytes} argument "
+                             f"bytes, the real step holds {real}")
+    return real
+
+
+def check_floor(roofline: dict, measured_s: float) -> float:
+    """The roofline floor, max(t_compute_s, t_memory_s), which must not
+    exceed the measured step: a floor above it means a count is wrong."""
+    floor = max(roofline["t_compute_s"], roofline["t_memory_s"])
+    if floor > measured_s:
+        raise AssertionError(f"the roofline floor {floor * 1e3:.3f} ms "
+                             f"exceeds the measured step "
+                             f"{measured_s * 1e3:.3f} ms")
+    return floor
+
+
+def _timed(fn, device, n: int):
+    """Mean seconds of ``n`` calls of ``fn`` after one untimed call."""
+    import torch
+    fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n
+
+
+def dryrun_cross_check(device, out_dir: Path, arch: str = ARCH,
+                       smoke: bool = False, batch: int = CROSS_BATCH,
+                       seq: int = CROSS_SEQ, steps: int = 2) -> dict:
+    """The dry-run on a (1, 1) host mesh (a subprocess of the CLI) at
+    ``arch``'s train step (B ``batch`` x T ``seq``) and its contiguous-
+    cache decode step (B ``batch`` against ``seq`` cached positions),
+    against the real steps on ``device``: the argument bytes equal the
+    bytes of the tensors the real step holds (fp32 params, AdamW state,
+    int32 batch; params, caches, token, position), the roofline floor is
+    at most the measured step, and the peak allocated beside arguments
+    plus the temp estimate."""
+    import torch
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import steps as S
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import adamw_init, tree_leaves
+    out = out_dir / "dryrun_1x1.json"
+    cmd = _dryrun_cmd("--mesh", "1x1", "--arch", arch, "--shape", "train_4k",
+                      "--shape", "decode_32k", "--batch", str(batch),
+                      "--seq", str(seq), "--out", str(out),
+                      *(["--smoke"] if smoke else []))
+    run = subprocess.run(cmd, cwd=ROOT, env=_dryrun_env(),
+                         capture_output=True, text=True, timeout=600)
+    check_dryrun_all(run.stdout, run.returncode)
+    dry = {r["shape"]: r for r in json.loads(out.read_text())}
+    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                           dtype=torch.int32).to(device)
+    res = {}
+    params = T.init_params(cfg, seed=SEED, device=device)
+    opt = adamw_init(params)
+    b = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    d = dry["train_4k"]
+    real = check_argument_bytes(
+        d["memory"]["argument_bytes_per_device"],
+        tree_leaves(params) + tree_leaves(opt) + list(b.values()))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    step_s = _timed(lambda: S.train_step(params, opt, b, cfg=cfg), device,
+                    steps)
+    res["train"] = _cross_row(d, real, step_s, device)
+    del opt, b
+    caches = T.init_caches(cfg, batch, seq, device=device)
+    token = tokens[:, 0].contiguous()
+    pos = torch.tensor(seq // 2, dtype=torch.int32, device=device)
+    d = dry["decode_32k"]
+    real = check_argument_bytes(
+        d["memory"]["argument_bytes_per_device"],
+        tree_leaves(params) + tree_leaves(caches) + [token, pos])
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    step_s = _timed(lambda: S.serve_step(params, caches, token, pos,
+                                         cfg=cfg), device, 4 * steps)
+    res["decode"] = _cross_row(d, real, step_s, device)
+    res["shapes"] = {"batch": batch, "seq": seq}
+    return res
+
+
+def _cross_row(d: dict, real_bytes: int, step_s: float, device) -> dict:
+    import torch
+    rf, mem = d["roofline"], d["memory"]
+    floor = check_floor(rf, step_s)
+    est = mem["argument_bytes_per_device"] + mem["temp_bytes_per_device"]
+    peak = (torch.cuda.max_memory_allocated() if device.type == "cuda"
+            else None)
+    return {"argument_bytes": real_bytes, "argument_bytes_equal": True,
+            "step_ms": step_s * 1e3, "floor_ms": floor * 1e3,
+            "floor_by": "compute" if rf["t_compute_s"] >= rf["t_memory_s"]
+            else "memory", "floor_share_of_step": floor / step_s,
+            "t_compute_ms": rf["t_compute_s"] * 1e3,
+            "t_memory_ms": rf["t_memory_s"] * 1e3,
+            "flops_source": rf["flops_source"],
+            "bytes_source": rf["bytes_source"],
+            "arguments_plus_temp_bytes": est,
+            "max_memory_allocated": peak,
+            "peak_over_estimate": None if peak is None else peak / est,
+            "trace_s": d["t_compile_s"]}
+
+
+def dryrun_serving(timeout: float = 900.0) -> dict:
+    """``--serving`` at full width on the card through the CLI (its one
+    mesh case, qwen2-1.5b at long_500k, is skipped by the reference's
+    rule): the serving case's line, which must say ok with one abort,
+    tokens, decode-graph variants and every serving kernel launched
+    except the swap copies (this case preempts nothing)."""
+    run = subprocess.run(_dryrun_cmd("--serving", "--arch", ARCH, "--shape",
+                                     "long_500k"),
+                         cwd=ROOT, env=_dryrun_env(), capture_output=True,
+                         text=True, timeout=timeout)
+    line = next((ln for ln in run.stdout.splitlines()
+                 if ln.startswith(f"ok   {ARCH} x serving ")), None)
+    if run.returncode != 0 or line is None:
+        raise AssertionError(f"--serving exited {run.returncode}: "
+                             f"{run.stdout[-2000:]} {run.stderr[-2000:]}")
+    r = json.loads(line.split(" x serving ", 1)[1])
+    if r["aborted"] != 1 or r["tokens"] <= 0 or \
+            r["decode_graph_variants"] < 1 or \
+            r["kernel_launches"]["paged_attention"] <= 0:
+        raise AssertionError(f"--serving: {r}")
+    return r
+
+
+def dryrun_phase(device, bg, out_dir: Path) -> dict:
+    """Phase 7: the background ``--all`` read (``check_dryrun_all``), the
+    serving case on the card, the (1, 1) cross-check."""
+    import torch
+    proc, out, t0 = bg
+    stdout, stderr = proc.communicate(timeout=1800)
+    seconds = time.perf_counter() - t0
+    counts = check_dryrun_all(stdout, proc.returncode)
+    results = json.loads(out.read_text())
+    ok = [r for r in results if r["status"] == "ok"]
+    traces = sorted(((r["t_compile_s"], f"{r['arch']} x {r['shape']} x "
+                      f"{r['mesh']}") for r in ok), reverse=True)
+    fallbacks = {}
+    for r in ok:
+        for k, v in {**r["fallbacks"], **r["decomposed"]}.items():
+            fallbacks[k] = fallbacks.get(k, 0) + v
+    serving = dryrun_serving()
+    cross = dryrun_cross_check(device, out_dir)
+    return {"all": {**{k: v for k, v in counts.items()
+                       if k != "skipped_cases"},
+                    "seconds": seconds, "torch": torch.__version__,
+                    "jobs": DRYRUN_JOBS, "slowest_traces_s": traces[:5],
+                    "fallbacks_and_decompositions": fallbacks,
+                    "cases": [{k: r.get(k) for k in (
+                        "arch", "shape", "mesh", "status", "t_compile_s")}
+                        | ({"argument_gib": r["memory"][
+                            "argument_bytes_per_device"] / 2 ** 30,
+                            "temp_gib": r["memory"][
+                                "temp_bytes_per_device"] / 2 ** 30,
+                            "dominant": r["roofline"]["dominant"]}
+                           if r["status"] == "ok" else {})
+                        for r in results]},
+            "serving": serving, "cross_check_1x1": cross}
+
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"{SRC / 'repro_torch'} not found: run chip_smoke.py from the "
@@ -4496,6 +4767,11 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0,
          sources={k: {"seconds": r.seconds, "ptxas": r.ptxas}
                   for k, r in built.items()})
+    # the dry-run's mesh cases need no device: they trace in the
+    # background while the card phases run, and phase 7 reads them
+    import tempfile
+    dryrun_dir = tempfile.TemporaryDirectory()
+    dryrun_bg = start_dryrun_all(Path(dryrun_dir.name))
 
     # 3. kernels
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
@@ -4702,7 +4978,6 @@ def main() -> int:
     del s_eng, again, plain
 
     # 5d. the launcher, at full width, in subprocesses
-    import tempfile
     with tempfile.TemporaryDirectory() as tmp:
         emit("serve", nvidia_smi=smi[0], **serve_phase(Path(tmp)))
 
@@ -4768,6 +5043,15 @@ def main() -> int:
         emit("profile", **profile_engine(bundle, convs, **sizes))
     del bundle, params
 
+    # 7. the dry-run: its mesh cases (traced in the background since
+    # phase 2), --serving on the card, the (1, 1) cross-check
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dr = dryrun_phase(dev, dryrun_bg, Path(dryrun_dir.name))
+    dryrun_dir.cleanup()
+    emit("dryrun", nvidia_smi=smi[0], seconds=time.perf_counter() - t0,
+         **dr)
+
     # summary
     serving = "serving (ServingEngine, the main path)"
     ops_path = ("repro_torch.kernels.ops at full width; no caller on the "
@@ -4817,6 +5101,7 @@ def main() -> int:
                 "prefix_launcher": px["kernel_launches"][kname],
                 "moe_engine": mo["launches"][kname],
                 "moe_launcher": mo["launcher"]["kernel_launches"][kname],
+                "dryrun_serving": dr["serving"]["kernel_launches"][kname],
                 **{f"mesh_{part}_1x{len(m['launches_per_shard'][kname])}": {
                     "total": m["launches"][kname],
                     "per_shard": m["launches_per_shard"][kname]}

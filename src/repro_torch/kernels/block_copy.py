@@ -109,6 +109,7 @@ def block_gather_runs(pool, slab0, src_starts, dst_starts, run_lens,
     CPU tensors take ``copy_runs_plain``; CUDA tensors launch the run-copy
     kernel over the C planes, after a pass that picks the last step
     naming each destination block."""
+    launches.refuse_shapes_only("block_gather_runs", pool, slab0)
     if not pool.is_cuda:
         return copy_runs_plain(pool, slab0, src_starts, dst_starts, run_lens,
                                run_blocks)
@@ -124,6 +125,7 @@ def block_scatter_runs(slab, pool, src_starts, dst_starts, run_lens,
     slab[:, s:s+l] -> pool[:, d:d+l] per run (the h2d half of the staged
     swap path).  Writes ``pool`` in place and returns it; CPU and CUDA
     tensors as in ``block_gather_runs``."""
+    launches.refuse_shapes_only("block_scatter_runs", slab, pool)
     if not pool.is_cuda:
         return copy_runs_plain(slab, pool, src_starts, dst_starts, run_lens,
                                run_blocks)
@@ -171,6 +173,7 @@ def block_copy(src_pool, dst_pool, src_blocks, dst_blocks):
     CPU tensors take ``block_copy_plain``; CUDA tensors launch the kernel
     (one CTA per index pair, after a pass that picks the last pair naming
     each destination block) and count it in ``block_copy.launches``."""
+    launches.refuse_shapes_only("block_copy", src_pool, dst_pool)
     if not dst_pool.is_cuda:
         return block_copy_plain(src_pool, dst_pool, src_blocks, dst_blocks)
     what = "block_copy"
@@ -224,6 +227,7 @@ def block_copy_grouped(src_pool, dst_pool, src_starts, dst_starts, run_lens,
     run-copy kernel with one plane (C = 1), after a pass that picks the
     last step naming each destination block, and count it in
     ``block_copy_grouped.launches``."""
+    launches.refuse_shapes_only("block_copy_grouped", src_pool, dst_pool)
     if not dst_pool.is_cuda:
         return block_copy_grouped_plain(src_pool, dst_pool, src_starts,
                                         dst_starts, run_lens, run_blocks)

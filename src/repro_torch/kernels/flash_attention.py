@@ -89,6 +89,7 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
     B, H, T, D = q.shape
     S = k.shape[2]
     _blocks(T, S, block_q, block_k)
+    launches.refuse_shapes_only("flash_attention", q, k, v)
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal,
                                      block_q=block_q, block_k=block_k)

@@ -150,6 +150,7 @@ def gla_scan_scalar(q, k, v, logw, *, chunk: int = 64):
     kernel on the current stream (and count it in
     ``gla_scan_scalar.launches``)."""
     _check_shapes(q, k, v, logw, chunk)
+    launches.refuse_shapes_only("gla_scan_scalar", q, k, v, logw)
     if not q.is_cuda:
         return gla_scan_scalar_plain(q, k, v, logw, chunk=chunk)
     _check_cuda_args(q, k, v, logw, chunk)

@@ -43,6 +43,18 @@ class Tally(collections.Counter):
         self.on: Counter = collections.Counter()
 
 
+def refuse_shapes_only(name: str, *tensors) -> None:
+    """Raise ``TypeError`` for a meta or fake tensor: a kernel wrapper
+    neither launches nor falls back to its plain version on a tensor
+    without data (the dry-run's traces reach none)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    for t in tensors:
+        if isinstance(t, torch.Tensor) and (t.is_meta
+                                            or isinstance(t, FakeTensor)):
+            raise TypeError(f"{name}: a meta or fake tensor has no data "
+                            "for the kernel or its plain version")
+
+
 def _storage(t: torch.Tensor) -> int:
     return t.untyped_storage().data_ptr()
 

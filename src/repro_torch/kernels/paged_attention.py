@@ -146,6 +146,7 @@ def paged_attention(q, k_pool, v_pool, block_tables, context_lens,
     ``paged_attention.launches`` and on ``k_pool``'s pool, or, inside a
     CUDA graph capture, in the capture's tally, which each replay adds:
     ``kernels.launches``)."""
+    launches.refuse_shapes_only("paged_attention", q, k_pool, v_pool)
     if not q.is_cuda:
         return paged_attention_plain(q, k_pool, v_pool, block_tables,
                                      context_lens, scale,

@@ -8,9 +8,10 @@ Counterpart of ``repro/models/attention.py`` (``init_gqa``,
 ``MLACache``, ``init_mla``, ``mla_forward`` and the absorbed-weight
 ``mla_decode``).  Attention here is plain tensor code,
 as in the reference, which computes it outside any Pallas kernel; the
-paged decode path's kernel is ``kernels/paged_attention.py``.  The
-reference's sharding constraints (``constrain_kv_seq``) are no-ops on one
-device and are left out.
+paged decode path's kernel is ``kernels/paged_attention.py``.  K and V
+pass through ``constrain_kv_seq`` where the reference's do: it returns
+them unchanged unless the dry-run traces DTensors under an activation
+context.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import _dense_init, apply_rope, recomputed
+from repro_torch.models.sharding import constrain_kv_seq
 
 NEG_INF = -1e30
 
@@ -128,6 +130,8 @@ def gqa_forward(p, x, cfg: ModelConfig, positions,
     q, k, v = _project_qkv(p, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    k = constrain_kv_seq(k)
+    v = constrain_kv_seq(v)
     scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
     if T > CHUNK_THRESHOLD:
         out = _sdpa_chunked(q, k, v, scale, window=window)
@@ -170,7 +174,7 @@ def gqa_decode(p, x, cfg: ModelConfig, cache_k, cache_v, pos,
     k_w, v_w = (quantize_kv(k), quantize_kv(v)) if quant else (k, v)
     # dynamic_update_slice clamps the start so that the row fits
     slot = pos % S if ring else torch.clamp(pos, max=S - 1)
-    index = slot.reshape(1)
+    index = slot.reshape(1).long()     # the reference's position is int32
     cache_k = cache_k.index_copy(1, index, k_w.to(cache_k.dtype))
     cache_v = cache_v.index_copy(1, index, v_w.to(cache_v.dtype))
     if quant:
@@ -296,6 +300,8 @@ def mla_forward(p, x, cfg: ModelConfig, positions):
     latent, k_rope = _mla_latents(p, x, cfg, positions)
     k_nope = (latent @ p["w_uk"].to(dt)).reshape(B, T, H, m.nope_head_dim)
     v = (latent @ p["w_uv"].to(dt)).reshape(B, T, H, m.v_head_dim)
+    k_nope = constrain_kv_seq(k_nope)
+    v = constrain_kv_seq(v)
     qd = m.nope_head_dim + m.rope_head_dim
     scale = 1.0 / math.sqrt(qd)
     q_full = torch.cat([q_nope, q_rope], dim=-1)
@@ -330,7 +336,7 @@ def mla_decode(p, x, cfg: ModelConfig, cache: MLACache, pos):
     q_nope, q_rope = _mla_queries(p, x, cfg, positions)
     latent_t, k_rope_t = _mla_latents(p, x, cfg, positions)
     # dynamic_update_slice clamps the start so that the row fits
-    index = torch.clamp(pos, max=S - 1).reshape(1)
+    index = torch.clamp(pos, max=S - 1).reshape(1).long()
     latent = cache.latent.index_copy(1, index, latent_t.to(
         cache.latent.dtype))
     k_rope = cache.k_rope.index_copy(1, index, k_rope_t.to(

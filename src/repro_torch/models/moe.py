@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.models import layers as L
+from repro_torch.models.sharding import constrain_experts
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig, device=None, lead=(),
@@ -131,6 +132,7 @@ def moe_forward(p, x, cfg: ModelConfig):
     buf_gate = buf_gate.view(E, cap + 1)[:, :cap]
     x_pad = torch.cat([xf, xf.new_zeros((1, d))], dim=0)
     xe = x_pad[buf_tok]                                      # (E, C, d)
+    xe = constrain_experts(xe)                               # EP over model
 
     # ---- expert compute (per-expert SwiGLU) -------------------------------
     g = torch.bmm(xe, p["w_gate"].to(dt))

@@ -336,7 +336,11 @@ def _prefill_chunk_core(params, tokens, k_carry, v_carry, prefix_len: int,
     carries at ``prefix_len`` BEFORE attention, so query i (position
     prefix_len + i) attends keys [0, prefix_len + i] of one buffer.
     Per-shard carries (and ``params`` the per-shard trees): each shard
-    runs its local heads, the head outputs concatenated before ``wo``.
+    projects its local heads and writes its carries; the attention then
+    runs as one product over every shard's heads, the one-device
+    product (over fewer heads cuBLAS may split the P.V reduction
+    otherwise: at 512-token chunks on an H100 the shards' own products
+    rounded up to 0.001 apart, PERF.md §6).
     Returns (last_logits (V,) at position prefix_len + chunk_len - 1,
     k_carry, v_carry)."""
     check_paged(cfg)
@@ -356,7 +360,7 @@ def _prefill_chunk_core(params, tokens, k_carry, v_carry, prefix_len: int,
     layers = [unstack_layers(p["layers"]) for p in shards]
     for layer, lp in enumerate(layers[0]):
         h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        parts = []
+        qs, kcs_l, vcs_l = [], [], []
         for shard, kcs, vcs in zip(layers, k_carries, v_carries):
             kc, vc = kcs[layer], vcs[layer]                # (S_pad, H, D)
             q, k, v = attn._project_qkv(shard[layer]["attn"], h, local)
@@ -364,8 +368,11 @@ def _prefill_chunk_core(params, tokens, k_carry, v_carry, prefix_len: int,
             k = L.rope_apply(k, cos, sin)
             kc[prefix_len:prefix_len + C_pad] = k[0]
             vc[prefix_len:prefix_len + C_pad] = v[0]
-            parts.append(attn._sdpa(q, kc[None], vc[None], mask, scale))
-        a = unshard(parts, 2)
+            qs.append(q)
+            kcs_l.append(kc)
+            vcs_l.append(vc)
+        a = attn._sdpa(unshard(qs, 2), unshard(kcs_l, 1)[None],
+                       unshard(vcs_l, 1)[None], mask, scale)
         x = x + (a.reshape(B, C_pad, -1) @ lp["attn"]["wo"].to(x.dtype))
         h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
         x = x + ffn(lp, h, cfg)

@@ -52,7 +52,7 @@ def chunked_ce_loss(hidden, head_table, labels, chunk: int = CE_CHUNK):
         logits = hc.float() @ w.T                              # (B, c, V)
         lse = torch.logsumexp(logits, dim=-1)
         safe = torch.clamp(lc, min=0)
-        ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+        ll = torch.gather(logits, -1, safe[..., None].long())[..., 0]
         mask = (lc >= 0).float()
         total = total + torch.sum((lse - ll) * mask)
         count = count + torch.sum(mask)

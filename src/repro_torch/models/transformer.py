@@ -62,6 +62,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2, moe, rwkv6
 from repro_torch.models.attention import MLACache
+from repro_torch.models.sharding import constrain_batch
 
 # leaves of the layer stacks that are matrix-product weights or biases
 # (cast at use by every layer); norm scales and biases stay fp32 (the
@@ -168,12 +169,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
     The numbers differ from ``repro.models.transformer.init_params`` for
     the same seed (a different generator); tests that compare the two
     packages convert the reference's parameters with
-    ``params_from_numpy`` instead."""
+    ``params_from_numpy`` instead.  On the ``meta`` device (the dry-run's
+    shapes, the reference's ``jax.eval_shape`` of its init) nothing is
+    drawn: the leaves have the shapes and dtypes and no data."""
     check_supported(cfg)
     device = torch.device(device)
     dtype = L.COMPUTE_DTYPE if serving else torch.float32
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = None
+    if device.type != "meta":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
     n = cfg.n_layers
     d = cfg.d_model
     params: Dict[str, Any] = {
@@ -349,6 +354,7 @@ def _uniform_layer_seq(lp, x, cfg: ModelConfig, positions, use_moe: bool,
                        window=None):
     """One layer in sequence mode (GQA over a ``window`` if given, or
     MLA); returns (x, cache, aux): the cache (k, v) or an ``MLACache``."""
+    x = constrain_batch(x)
     h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
     if cfg.mla is not None:
         a, cache = attn.mla_forward(lp["attn"], h, cfg, positions)
@@ -454,6 +460,7 @@ def _bidir_attn(p, h, cfg: ModelConfig, recompute: bool):
 
 
 def _encoder_layer(lp, x, cfg: ModelConfig, recompute: bool):
+    x = constrain_batch(x)
     h = L.layernorm(lp["ln1"], x, cfg.norm_eps, recompute)
     x = x + _bidir_attn(lp["attn"], h, cfg, recompute)
     h = L.layernorm(lp["ln2"], x, cfg.norm_eps, recompute)
@@ -478,6 +485,7 @@ def _decoder_layer_seq(lp, x, enc_out, cfg: ModelConfig, positions,
                        recompute: bool):
     """One decoder layer, teacher-forced; returns (x, (k, v, cross k,
     cross v)).  ``recompute`` as ``_encoder_layer``'s."""
+    x = constrain_batch(x)
     h = L.layernorm(lp["ln1"], x, cfg.norm_eps, recompute)
     a, (k, v) = attn.gqa_forward(lp["self_attn"], h, cfg, positions)
     x = x + a
@@ -616,6 +624,7 @@ def forward_seq(params, cfg: ModelConfig, tokens, extra_embeds=None,
 def _rwkv_layer_seq(lp, x, cfg: ModelConfig):
     """One RWKV6 layer in sequence mode from the zero state; returns
     (x, ``RWKVState``)."""
+    x = constrain_batch(x)
     h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
     st = rwkv6.init_rwkv_state(cfg, x.shape[0], dtype=x.dtype,
                                device=x.device)
@@ -626,6 +635,7 @@ def _rwkv_layer_seq(lp, x, cfg: ModelConfig):
 def _mamba_layer_seq(lp, x, cfg: ModelConfig):
     """One Mamba2 layer in sequence mode from a fresh state (so a no-grad
     CUDA forward takes the scan kernel); returns (x, ``MambaState``)."""
+    x = constrain_batch(x)
     h = L.rmsnorm(lp["ln"], x, cfg.norm_eps)
     h, st = mamba2.mamba2_block_forward(lp["mamba"], h, cfg)
     return x + h, st
@@ -784,6 +794,7 @@ def _uniform_layer_decode(lp, x, cfg: ModelConfig, cache, pos,
     """One layer of the decode step: x (B, 1, d) against the layer's
     cache, (k, v) (a ring of slots with ``ring``) or an ``MLACache``
     (absorbed-weight MLA); returns (x, the new cache of the same type)."""
+    x = constrain_batch(x)
     h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
     if cfg.mla is not None:
         a, cache = attn.mla_decode(lp["attn"], h, cfg, cache, pos)

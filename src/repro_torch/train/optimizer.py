@@ -15,6 +15,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 
 class AdamWState(NamedTuple):
@@ -81,6 +82,10 @@ def adamw_update(grads, state: AdamWState, params, *, lr=3e-4, b1=0.9,
         p.copy_((p - lr * delta).to(p.dtype))
 
     def upd(g, m, v, p):
+        if isinstance(p, DTensor):
+            # the dry-run's trace: each device updates its local shards
+            # whole (flattening a leaf sharded on two dims would gather it)
+            return upd_chunk(g, m, v, p)
         g, m, v, p = g.reshape(-1), m.view(-1), v.view(-1), p.view(-1)
         for a in range(0, p.numel(), ADAMW_CHUNK):
             b = a + ADAMW_CHUNK

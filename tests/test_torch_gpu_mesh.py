@@ -144,3 +144,25 @@ def test_sharded_replays_equal_the_eager_sharded_step(cuda, arch, n,
     per_shard = [launches.on(pa.paged_attention, p) for p in pools.gpu]
     assert per_shard == [2 * st.steps] * n
     assert runner._graphs[False].launches == {pa.paged_attention: 2 * n}
+
+
+def test_sharded_prefill_chunk_byte_equal_at_512_tokens(cuda):
+    """qwen2-1.5b at full width on (1, 2): a 352-token chunk (padded to
+    512) through the sharded chunk forward equals the one-device chunk
+    byte for byte, logits and carries (the shards' attention runs as one
+    product over all their heads; their own products rounded up to 0.001
+    apart there)."""
+    from repro_torch.models.sharding import CARRY_HEAD_AXIS, unshard
+    cfg = get_config("qwen2-1.5b")
+    params = T.init_params(cfg, seed=0, device=cuda, serving=True)
+    mesh = make_serving_mesh((1, 2), ["cuda:0"] * 2)
+    shards = sharding.shard_params(params, mesh)
+    for n in (256, 352):
+        toks = [(7 * i + 3) % cfg.vocab_size for i in range(n)]
+        one = ops.prefill_chunk(params, toks, None, None, 0, cfg=cfg,
+                                block_size=16)
+        sh = ops.prefill_chunk(shards, toks, None, None, 0, cfg=cfg,
+                               block_size=16, mesh=mesh)
+        assert torch.equal(sh[0], one[0]), n
+        for i in (1, 2):
+            assert torch.equal(unshard(sh[i], CARRY_HEAD_AXIS), one[i]), n
