@@ -241,6 +241,20 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                of a mesh over two CUDA devices (``NotImplementedError``)
                and of a default device list too short (``ValueError``),
                before any work.
+  5l. examples — the examples, in a process of its own
+               (``scripts/examples_probe.py``): ``examples/
+               torch_quickstart.py``'s engine built in process
+               (``build("cuda")``: llama3.2-3b at full width, 28 layers,
+               d_model 3072, 24 / 8 heads of 128, random bf16 weights from
+               seed 0) and run — every turn finished, preemption, swaps
+               both ways, no copy retried or failed, greedy tokens the
+               dense argmax or a near-tie (0.05), paged attention, gather
+               and scatter each launched (counted at every replay), wall
+               and host seconds by method; then ``python
+               examples/torch_quickstart.py`` (exit 0, its ``served`` and
+               ``preemptions`` lines read) and ``python
+               examples/torch_train_lm.py --steps 50`` (exit 0, the loss
+               falls, the checkpoint round-trips byte for byte).
   6. device_times — the device time of each phase-3 kernel and library
                call alone: their CUDA kernels under ``torch.profiler``, the
                wrapper's host time left out.  After the engine phases,
@@ -271,7 +285,11 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                a lower priority): ok, skipped (the long_500k rule only) and
                failed cases counted, none may fail; ``--serving`` at full
                width on the card (three requests, one aborted: its tokens,
-               decode-graph variants and kernel launches); and on a (1, 1)
+               decode-graph variants and kernel launches); ``--audit-jit``
+               on qwen2-1.5b at full width (exit 0: fslint's static FS002
+               degrees for all five rows, and the live counts of the
+               decode step's graphs and of the swap, insert and chunk
+               sites' padded shape keys within their bounds); and on a (1, 1)
                host mesh, qwen2-1.5b's train step (B 8 x T 128) and its
                contiguous-cache decode step (B 8 against 128 positions):
                the dry-run's argument bytes equal to the real steps'
@@ -295,6 +313,7 @@ import contextlib
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import threading
@@ -1325,9 +1344,11 @@ def run_engine(bundle, convs, *, gpu_blocks: int, cpu_blocks: int,
     return eng, time.perf_counter() - t0, host, swaps
 
 
-def check_engine(eng, convs, swaps, expect_swaps=None) -> dict:
+def check_engine(eng, convs, swaps, expect_swaps=None,
+                 every_conv_swapped: bool = True) -> dict:
     """Every turn finished, preemption happened, every conversation was
-    swapped out and back in, no swap copy failed, and, given
+    swapped out and back in (with ``every_conv_swapped``; else the run
+    swapped both ways), no swap copy failed, and, given
     ``expect_swaps`` (swap-outs, swap-in sub-slabs), the run made exactly
     those staged calls.  A copy that raises
     (a failed build or launch, a wrapper's refusal) is retried and then
@@ -1362,7 +1383,7 @@ def check_engine(eng, convs, swaps, expect_swaps=None) -> dict:
     by_conv = {c.conv_id: [swaps.get((c.conv_id, "out"), 0),
                            swaps.get((c.conv_id, "in"), 0)] for c in convs}
     unswapped = [c for c, (o, i) in by_conv.items() if o <= 0 or i <= 0]
-    if unswapped:
+    if unswapped and every_conv_swapped:
         raise AssertionError(f"conversations {unswapped} were not swapped "
                              f"both ways: {by_conv}")
     st = eng.runner.stats
@@ -4487,6 +4508,131 @@ def mesh_phase(device, qcfg=None, ocfg=None) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 5l: the examples (llama3.2-3b served at full width, train_lm)
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ROOT / "examples"
+QUICKSTART_SERVED = re.compile(r"^served (\d+) tokens over (\d+) iters$")
+QUICKSTART_SWAPS = re.compile(r"^preemptions (\d+)  swap ops (\d+)  ")
+TRAIN_LM_DONE = re.compile(r"^loss ([\d.]+) -> ([\d.]+); checkpoint "
+                           r"round-trip OK ")
+
+
+def run_example(script: str, args=(), timeout: float = 600.0) -> dict:
+    """``python examples/SCRIPT ARGS`` from the checkout's root; raises on
+    a non-zero exit.  Returns {"wall_s", "stdout": its lines}."""
+    import os
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(EXAMPLES / script), *args],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{script} {' '.join(args)} exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    return {"wall_s": wall, "stdout": proc.stdout.splitlines()}
+
+
+def _matched(pattern, lines, what: str):
+    m = next((pattern.match(ln) for ln in lines if pattern.match(ln)), None)
+    if m is None:
+        raise AssertionError(f"{what}: no line matching {pattern.pattern} "
+                             f"in {lines[-10:]}")
+    return m
+
+
+def examples_phase(device, params=None, train_steps: int = 50) -> dict:
+    """The examples: ``examples/torch_quickstart.py``'s engine built in
+    process (``build(device)``: llama3.2-3b at full width on ``cuda``, its
+    reduced config on ``cpu``; ``params`` overrides the seed-0 weights)
+    and run — every turn finished, preemption, swaps both ways, no copy
+    retried or failed, greedy tokens the dense argmax or near-ties, each
+    serving kernel launched (counted at every replay), wall and host
+    seconds by method — then the quickstart and ``torch_train_lm.py
+    --steps train_steps`` as subprocesses: exit 0, their summary lines
+    read (the loss falls, the checkpoint round-trips)."""
+    import tempfile
+
+    import torch
+    if str(EXAMPLES) not in sys.path:
+        sys.path.insert(0, str(EXAMPLES))
+    import torch_quickstart as qs
+    from repro_torch.kernels import launches
+    from repro_torch.kernels import block_copy as bc
+    from repro_torch.kernels import paged_attention as pa
+    dev = torch.device(device)
+    flag = [] if dev.type == "cuda" else ["--device", "cpu"]
+    kernels = {"paged_attention": pa.paged_attention,
+               "block_gather_runs": bc.block_gather_runs,
+               "block_scatter_runs": bc.block_scatter_runs}
+    t0 = time.perf_counter()
+    eng = qs.build(dev.type, params=params)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    bundle = eng.runner.mb
+    convs = qs.conversations()
+    host = _time_methods([(eng.runner, "decode"), (eng.runner, "flush"),
+                          (eng.runner, "_scatter_rows"),
+                          (eng.runner, "prefill_chunk_compute"),
+                          (eng.pools, "copy_out_staged"),
+                          (eng.pools, "copy_in_staged")])
+    swaps = _count_swaps(eng.swap)
+    launches.reset(*kernels.values())
+    t0 = time.perf_counter()
+    metrics = eng.run()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k: w.launches for k, w in kernels.items()}
+    checked = check_engine(eng, convs, swaps, every_conv_swapped=False)
+    tokens = [check_tokens(eng, bundle, c) for c in convs]
+    if dev.type == "cuda" and not all(launched.values()):
+        raise AssertionError(f"a serving kernel was not launched: "
+                             f"{launched}")
+    s, sw = metrics.summary(), eng.swap.stats()
+    cfg = bundle["cfg"]
+    eng.shutdown()
+    del eng, bundle
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "build_s": build_s, "wall_s": wall,
+           "host_s": host, **checked, "launches": launched,
+           "iterations": s["iterations"], "swap_ops": sw["total_ops"],
+           "swap_blocks": sw["total_blocks"],
+           "greedy_equal": sum(r["equal"] for r in tokens),
+           "greedy_near_ties": sum(r["near_ties"] for r in tokens),
+           "greedy_max_gap": max(r["max_gap"] for r in tokens),
+           "tolerance": NEAR_TIE}
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    run = run_example("torch_quickstart.py", flag)
+    served = _matched(QUICKSTART_SERVED, run["stdout"], "torch_quickstart")
+    pre = _matched(QUICKSTART_SWAPS, run["stdout"], "torch_quickstart")
+    out["quickstart_cli"] = {
+        "wall_s": run["wall_s"], "tokens": int(served[1]),
+        "iterations": int(served[2]), "preemptions": int(pre[1]),
+        "swap_ops": int(pre[2])}
+    if out["quickstart_cli"]["tokens"] != out["tokens"]:
+        raise AssertionError(f"torch_quickstart served "
+                             f"{out['quickstart_cli']['tokens']} tokens, "
+                             f"the engine {out['tokens']}")
+    with tempfile.TemporaryDirectory() as tmp:
+        run = run_example("torch_train_lm.py", [
+            *flag, "--steps", str(train_steps),
+            "--checkpoint", str(Path(tmp) / "ckpt.npz")])
+    done = _matched(TRAIN_LM_DONE, run["stdout"], "torch_train_lm")
+    first, last = float(done[1]), float(done[2])
+    if not last < first:
+        raise AssertionError(f"torch_train_lm: loss {first} -> {last}")
+    out["train_lm_cli"] = {"wall_s": run["wall_s"], "steps": train_steps,
+                           "loss_first": first, "loss_last": last,
+                           "checkpoint_round_trip": True}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the dry-run and roofline tools
 # ---------------------------------------------------------------------------
 
@@ -4697,9 +4843,31 @@ def dryrun_serving(timeout: float = 900.0) -> dict:
     return r
 
 
+def dryrun_audit(device: str = "cuda", timeout: float = 900.0) -> dict:
+    """``--audit-jit`` on qwen2-1.5b through the CLI (at full width on the
+    card; the reduced config with ``device`` cpu): exit 0, its line ok,
+    and its five rows each with static degrees and a live count within
+    the bound.  Returns {row: {live_variants, static_degrees, bound}}."""
+    extra = [] if device == "cuda" else ["--device", device]
+    run = subprocess.run(_dryrun_cmd("--audit-jit", "--arch", ARCH, *extra),
+                         cwd=ROOT, env=_dryrun_env(), capture_output=True,
+                         text=True, timeout=timeout)
+    line = next((ln for ln in run.stdout.splitlines()
+                 if ln.startswith(f"ok   {ARCH} x jit-audit ")), None)
+    if run.returncode != 0 or line is None:
+        raise AssertionError(f"--audit-jit exited {run.returncode}: "
+                             f"{run.stdout[-2000:]} {run.stderr[-2000:]}")
+    rows = json.loads(line.split(" x jit-audit ", 1)[1])["functions"]
+    if len(rows) != 5 or any(r["live_variants"] > r["bound"]
+                             for r in rows.values()):
+        raise AssertionError(f"--audit-jit: {rows}")
+    return rows
+
+
 def dryrun_phase(device, bg, out_dir: Path) -> dict:
     """Phase 7: the background ``--all`` read (``check_dryrun_all``), the
-    serving case on the card, the (1, 1) cross-check."""
+    serving case and the graph-and-bucket audit on the card, the (1, 1)
+    cross-check."""
     import torch
     proc, out, t0 = bg
     stdout, stderr = proc.communicate(timeout=1800)
@@ -4714,6 +4882,7 @@ def dryrun_phase(device, bg, out_dir: Path) -> dict:
         for k, v in {**r["fallbacks"], **r["decomposed"]}.items():
             fallbacks[k] = fallbacks.get(k, 0) + v
     serving = dryrun_serving()
+    audit = dryrun_audit()
     cross = dryrun_cross_check(device, out_dir)
     return {"all": {**{k: v for k, v in counts.items()
                        if k != "skipped_cases"},
@@ -4729,7 +4898,8 @@ def dryrun_phase(device, bg, out_dir: Path) -> dict:
                             "dominant": r["roofline"]["dominant"]}
                            if r["status"] == "ok" else {})
                         for r in results]},
-            "serving": serving, "cross_check_1x1": cross}
+            "serving": serving, "audit_jit": audit,
+            "cross_check_1x1": cross}
 
 
 
@@ -5025,6 +5195,13 @@ def main() -> int:
     mesh = phase_alone("mesh")
     emit("mesh", **mesh)
 
+    # 5l. the examples: torch_quickstart's engine with llama3.2-3b at full
+    # width, then the quickstart and torch_train_lm as subprocesses, in a
+    # process of its own
+    torch.cuda.empty_cache()
+    ex = phase_alone("examples")
+    emit("examples", **ex)
+
     # 6. device times of phase 3's calls, after the timed engine runs
     for t in all_timed.values():
         add_device_times(t, flush)
@@ -5102,6 +5279,7 @@ def main() -> int:
                 "moe_engine": mo["launches"][kname],
                 "moe_launcher": mo["launcher"]["kernel_launches"][kname],
                 "dryrun_serving": dr["serving"]["kernel_launches"][kname],
+                "examples_llama3p2_3b": ex["launches"][kname],
                 **{f"mesh_{part}_1x{len(m['launches_per_shard'][kname])}": {
                     "total": m["launches"][kname],
                     "per_shard": m["launches_per_shard"][kname]}

@@ -350,7 +350,9 @@ class DecodeRunner:
         rows_hist = self._pending
         self._pending = None
         if self._nxt_ready is not None:
+            # fslint: disable=FS003(the deferred-sync point: one wait per step for the pinned next-token copy, by design)
             self._nxt_ready.synchronize()
+        # fslint: disable=FS003(reads the pinned host buffer the event above guards; no device wait of its own)
         vals = self._host_nxt.numpy()
         self.stats.host_syncs += 1
         for row, hist in rows_hist:
@@ -548,9 +550,9 @@ class DecodeRunner:
         sampled = not self._sampled_rows.isdisjoint(self._active_rows)
         graph = self._graphs.get(sampled)
         if graph is None:
-            step = self._steps[sampled]
-            nxt = step(*tensors)
-            self._graphs[sampled] = _StepGraph(step, tensors,
+            nxt = self._step_nxt(self._params, self.mb["cfg"], *tensors,
+                                 sampled=sampled)
+            self._graphs[sampled] = _StepGraph(self._steps[sampled], tensors,
                                                self._capture_stream)
             self.stats.eager_steps += 1
             if sampled:
@@ -734,6 +736,7 @@ class DecodeRunner:
         else:
             tok = sample_tokens(st.last_logits[None, :], None, None, None,
                                 sampled=False)
+        # fslint: disable=FS003(first-token emit must sync, as the reference's; once per prefill, not per step)
         hist.append(int(tok[0]))
         st.emitted = True
 

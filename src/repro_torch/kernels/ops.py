@@ -113,6 +113,44 @@ def _pad_runs(runs: Sequence[Tuple[int, int]]
             _next_pow2(int(max(n for _, n in runs))))
 
 
+# The padded shape keys each shape-keyed site has launched at: the port's
+# counterparts of the reference's per-shape compiled variants (its
+# ``jax.jit`` caches), read by ``launch/dryrun.py --audit-jit`` against
+# fslint's FS002 bound.  Buckets keep each set O(log^2) of the sizes.
+_SHAPE_KEYS = {"gather": set(), "scatter": set(), "insert": set()}
+
+
+def swap_gather_cache_size() -> int:
+    """Distinct padded shape keys of the staged gather (bucketing
+    metric), every shard's together."""
+    return len(_SHAPE_KEYS["gather"])
+
+
+def swap_scatter_cache_size() -> int:
+    """Distinct padded shape keys of the staged scatter."""
+    return len(_SHAPE_KEYS["scatter"])
+
+
+def insert_prefill_cache_size() -> int:
+    """Distinct padded shape keys of the prefill scatter."""
+    return len(_SHAPE_KEYS["insert"])
+
+
+def prefill_chunk_cache_size() -> int:
+    """Distinct padded shape keys of the chunked prefill forward
+    (``models.paged.prefill_kv_chunk``), every shard's together."""
+    from repro_torch.models.paged import prefill_chunk_keys
+    return len(prefill_chunk_keys())
+
+
+def reset_cache_sizes() -> None:
+    """Forget every site's keys (the reference clears its jit caches)."""
+    from repro_torch.models.paged import prefill_chunk_keys
+    for keys in _SHAPE_KEYS.values():
+        keys.clear()
+    prefill_chunk_keys().clear()
+
+
 def to_device(a: np.ndarray, device) -> torch.Tensor:
     """A host index or token array as a tensor on ``device``."""
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -145,13 +183,24 @@ def gather_swap_runs(pool, runs: Sequence[Tuple[int, int]]):
         slabs = [gather_swap_runs(p, runs)[0] for p in pool]
         return slabs, int(sum(n for _, n in runs))
     src, dst, lens, _, n_slab, run_blocks = _pad_runs(runs)
+    slab = _gather_swap(pool, *_runs_on(pool.device, src, dst, lens),
+                        n_slab=n_slab, run_blocks=run_blocks)
+    return slab, int(sum(n for _, n in runs))
+
+
+def _gather_swap(pool, src_starts, dst_starts, lens, *, n_slab: int,
+                 run_blocks: int):
+    """One shard's staged gather at one padded shape (the reference's
+    jitted ``_gather_swap``): a zeroed (L*2, n_slab, bs, Hkv, D) slab
+    filled by the run-copy kernel."""
     L, K, nb, bs, H, D = pool.shape
+    _SHAPE_KEYS["gather"].add((tuple(pool.shape), str(pool.dtype),
+                               src_starts.shape[0], n_slab, run_blocks))
     slab = torch.zeros((L * K, n_slab, bs, H, D), dtype=pool.dtype,
                        device=pool.device)
     _bc.block_gather_runs(pool.view(L * K, nb, bs, H, D), slab,
-                          *_runs_on(pool.device, src, dst, lens),
-                          run_blocks=run_blocks)
-    return slab, int(sum(n for _, n in runs))
+                          src_starts, dst_starts, lens, run_blocks=run_blocks)
+    return slab
 
 
 def scatter_swap_runs(pool, slab, runs: Sequence[Tuple[int, int]]):
@@ -172,10 +221,21 @@ def scatter_swap_runs(pool, slab, runs: Sequence[Tuple[int, int]]):
     if slab.shape[1] != n_slab:
         raise ValueError(f"slab holds {slab.shape[1]} blocks, the runs' "
                          f"bucket is {n_slab}")
-    L, K, nb, bs, H, D = pool.shape
     # gather offsets are the slab side here: slab[dst] -> pool[src]
+    return _scatter_swap(pool, slab, *_runs_on(pool.device, dst, src, lens),
+                         run_blocks=run_blocks)
+
+
+def _scatter_swap(pool, slab, src_starts, dst_starts, lens, *,
+                  run_blocks: int):
+    """One shard's staged scatter at one padded shape (the reference's
+    jitted ``_scatter_swap``), in place on ``pool``, which is returned."""
+    L, K, nb, bs, H, D = pool.shape
+    _SHAPE_KEYS["scatter"].add((tuple(pool.shape), str(pool.dtype),
+                                tuple(slab.shape), src_starts.shape[0],
+                                run_blocks))
     _bc.block_scatter_runs(slab, pool.view(L * K, nb, bs, H, D),
-                           *_runs_on(pool.device, dst, src, lens),
+                           src_starts, dst_starts, lens,
                            run_blocks=run_blocks)
     return pool
 
@@ -193,11 +253,22 @@ def insert_prefill(pool, k, v, blocks, block_size: int):
         for p, ks, vs in zip(pool, k, v):
             insert_prefill(p, ks, vs, blocks, block_size)
         return pool
+    return _insert_prefill(pool, k, v,
+                           to_device(np.asarray(blocks, np.int64),
+                                     pool.device),
+                           block_size=block_size)
+
+
+def _insert_prefill(pool, k, v, blocks, *, block_size: int):
+    """One shard's prefill scatter at one padded shape (the reference's
+    jitted ``_insert_prefill``), in place on ``pool``, which is
+    returned."""
     L, T, H, D = k.shape
     P = T // block_size
-    idx = to_device(np.asarray(blocks, np.int64), pool.device)
+    _SHAPE_KEYS["insert"].add((tuple(pool.shape), str(pool.dtype),
+                               tuple(k.shape), str(k.dtype), block_size))
     kv = torch.stack([k, v], dim=1).reshape(L, 2, P, block_size, H, D)
-    pool[:, :, idx] = kv.to(pool.dtype)
+    pool[:, :, blocks] = kv.to(pool.dtype)
     return pool
 
 

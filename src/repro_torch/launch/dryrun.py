@@ -19,12 +19,16 @@ Its result keys are the reference's, read so:
 
 ``--serving`` drives the port's ``ServingEngine`` through its public API
 (three requests, one aborted), on the card at full width by default,
-with ``--device cpu`` at the reduced config.  ``--smoke`` takes the
+with ``--device cpu`` at the reduced config.  ``--audit-jit`` runs that
+case after fslint's static pass (``repro_torch.analysis``) and holds the
+live counts of the decode step's CUDA graphs and of the padded shape keys
+at the swap, insert and chunk sites to FS002's bounds.  ``--smoke`` takes the
 reduced configs for the mesh cases and ``--mesh`` another mesh (e.g.
 ``2x2``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-1.5b --shape train_4k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --audit-jit --device cpu
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --multi-pod both \\
       --out results/dryrun
 
@@ -41,15 +45,6 @@ import traceback
 
 from repro_torch.configs import (INPUT_SHAPES, SHAPES_BY_NAME, InputShape,
                                  get_config, get_smoke_config, list_archs)
-
-# the ROADMAP item that ports fslint (``repro/analysis/``), whose static
-# pass ``--audit-jit`` needs
-AUDIT_JIT_PENDING = ("--audit-jit needs fslint's static pass "
-                     "(jit_budget, in the reference's repro/analysis/), which "
-                     "the port does not have yet: ROADMAP.md queue 1 item 5, 'Static "
-                     "analysis, analysis/ (ten files), and the dry-run's "
-                     "--audit-jit'")
-
 
 def _mesh_for(multi_pod: bool, sizes=None):
     from repro_torch.launch.mesh import make_mesh, make_production_mesh
@@ -143,14 +138,17 @@ def run_case(arch: str, shape_name: str, multi_pod: bool,
     return result
 
 
-def run_serving_case(arch: str, device: str = "cuda") -> dict:
+def run_serving_case(arch: str, device: str = "cuda", *,
+                     prompt_lens=(12, 12, 12), max_tokens: int = 6,
+                     num_gpu_blocks: int = 64, block_size: int = 16) -> dict:
     """Serving-path dry-run: the port's ``ServingEngine`` (bucketed
     prefill, the decode step's CUDA graphs, staged swaps) through the
     PUBLIC API for one arch — three requests added, stepped to
     completion, one aborted mid-flight — reporting the wall time, the
     decode step's graph variants and the kernels' launches.  On ``cuda``
     the published config at full width (random weights from seed 0); on
-    ``cpu`` the reduced one."""
+    ``cpu`` the reduced one.  The keywords give another workload (one
+    request per prompt length, the last aborted) and pool."""
     import torch
 
     from repro_torch.core import EngineConfig, SamplingParams, ServingEngine
@@ -171,8 +169,10 @@ def run_serving_case(arch: str, device: str = "cuda") -> dict:
         return {"arch": arch, "case": "serving", "status": "skipped",
                 "reason": "no paged-pool support (needs uniform GQA)"}
     params = T.init_params(cfg, seed=0, device=device, serving=True)
-    ec = EngineConfig(mode="real", num_gpu_blocks=64, num_cpu_blocks=128,
-                      max_running=4, max_batch=4).with_policy("fastswitch")
+    ec = EngineConfig(mode="real", num_gpu_blocks=num_gpu_blocks,
+                      num_cpu_blocks=2 * num_gpu_blocks,
+                      block_size=block_size, max_running=4,
+                      max_batch=4).with_policy("fastswitch")
     kernels = {"paged_attention": pa.paged_attention,
                "block_gather_runs": bc.block_gather_runs,
                "block_scatter_runs": bc.block_scatter_runs}
@@ -180,9 +180,9 @@ def run_serving_case(arch: str, device: str = "cuda") -> dict:
     t0 = time.time()
     eng = ServingEngine(ec, trace=PriorityTrace("random", 1e-9, seed=0),
                         model_bundle={"cfg": cfg, "params": params})
-    handles = [eng.add_request(synth_prompt_ids(i, 0, 12, cfg.vocab_size),
-                               SamplingParams(max_tokens=6))
-               for i in range(3)]
+    handles = [eng.add_request(synth_prompt_ids(i, 0, n, cfg.vocab_size),
+                               SamplingParams(max_tokens=max_tokens))
+               for i, n in enumerate(prompt_lens)]
     it = 0
     while eng.has_work() and it < 2000:
         eng.step()
@@ -202,6 +202,68 @@ def run_serving_case(arch: str, device: str = "cuda") -> dict:
             "aborted": eng.metrics.aborted,
             "decode_graph_variants": variants,
             "kernel_launches": {k: w.launches for k, w in kernels.items()}}
+
+
+# the five live-count rows of the audit: the static FS002 row's qualname
+# suffix, and the counter of its live variants
+AUDIT_ROWS = (
+    "models.paged.paged_decode_step_device",
+    "kernels.ops._gather_swap",
+    "kernels.ops._scatter_swap",
+    "kernels.ops._insert_prefill",
+    "models.paged.prefill_kv_chunk",
+)
+
+
+def run_jit_audit(arch: str, device: str = "cuda", **serving) -> dict:
+    """Live cross-check of fslint's FS002 graph-and-bucket budget (the
+    reference's ``run_jit_audit``): run the static pass over
+    ``src/repro_torch`` for the degrees of freedom of every hot keyed
+    function, run the serving case (``serving`` passes it another
+    workload), then compare the live counts — the decode step's graphs
+    per bucket, and the distinct padded shape keys at the swap, insert
+    and chunk sites — against the static bound
+    ``(log2(max_tokens) + 2) ** max(degrees, 2)``, ``max_tokens`` the
+    pool's budget.  A count above its bound means shapes reached a keyed
+    hot function without pow2 bucketing; a row without static degrees
+    means the static pass lost track of the function.  Both fail."""
+    from pathlib import Path
+
+    from repro_torch.analysis.driver import AnalysisResult, jit_budget
+    from repro_torch.kernels import ops
+
+    src_root = Path(__file__).resolve().parents[2]   # .../src
+    degrees = jit_budget([str(src_root / "repro_torch")],
+                         repo_root=str(src_root.parent))
+    ops.reset_cache_sizes()
+    case = run_serving_case(arch, device, **serving)
+    if case["status"] != "ok":
+        return {**case, "case": "jit-audit", "status": "FAIL",
+                "reason": f"serving smoke {case['status']}"}
+    max_tokens = (serving.get("num_gpu_blocks", 64)
+                  * serving.get("block_size", 16))
+    live = dict(zip(AUDIT_ROWS, (
+        case["decode_graph_variants"], ops.swap_gather_cache_size(),
+        ops.swap_scatter_cache_size(), ops.insert_prefill_cache_size(),
+        ops.prefill_chunk_cache_size())))
+    rows = {}
+    violations = []
+    for suffix, n in live.items():
+        found = [deg for qual, deg in degrees.items()
+                 if qual.endswith(suffix)]
+        d = max(found, default=0)
+        bound = AnalysisResult.variant_bound(d, max_tokens)
+        rows[suffix] = {"live_variants": n, "static_degrees": d,
+                        "bound": bound}
+        if not found:
+            violations.append(f"{suffix}: no static degrees (FS002 lost "
+                              f"track of it)")
+        elif n > bound:
+            violations.append(f"{suffix}: {n} > {bound}")
+    return {"arch": arch, "case": "jit-audit", "device": device,
+            "status": "FAIL" if violations else "ok",
+            "max_tokens": max_tokens, "functions": rows,
+            "violations": violations, "t_total_s": case.get("t_total_s")}
 
 
 def _resized(name: str, batch, seq):
@@ -328,7 +390,9 @@ def main() -> int:
                     help="also dry-run the online serving hot path "
                          "(ServingEngine add_request/step/abort)")
     ap.add_argument("--audit-jit", action="store_true",
-                    help="not in the port yet: exits 2 (see ROADMAP.md)")
+                    help="compare live graph and shape-key counts after "
+                         "the serving case against fslint FS002's static "
+                         "bounds; fail on any excess")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="--serving's device: cuda serves the published "
                          "config at full width, cpu the reduced one")
@@ -347,9 +411,6 @@ def main() -> int:
                     help="run the mesh cases in this many processes")
     ap.add_argument("--cases", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
-    if args.audit_jit:
-        print(AUDIT_JIT_PENDING, flush=True)
-        return 2
     # DTensor warns on every multi-axis redistribution it plans
     logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
         logging.ERROR)
@@ -364,6 +425,23 @@ def main() -> int:
 
     results = []
     n_fail = 0
+    if args.audit_jit:
+        for arch in archs:
+            r = run_jit_audit(arch, args.device)
+            results.append(r)
+            if r["status"] == "FAIL":
+                n_fail += 1
+            print(f"{r['status']:4s} {arch} x jit-audit "
+                  + json.dumps({k: v for k, v in r.items()
+                                if k in ("functions", "violations")}),
+                  flush=True)
+        if not (args.serving or args.all or args.arch or args.shape):
+            if args.out:
+                os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+                with open(args.out, "w") as f:
+                    json.dump(results, f, indent=1)
+                print(f"wrote {args.out}")
+            return 1 if n_fail else 0
     if args.serving:
         for arch in archs:
             r = run_serving_case(arch, args.device)

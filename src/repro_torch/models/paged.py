@@ -383,6 +383,16 @@ def _prefill_chunk_core(params, tokens, k_carry, v_carry, prefix_len: int,
     return L.unembed(head, x_last)[0], k_carry, v_carry
 
 
+# The padded (C_pad, S_pad) shape keys the chunk forward has run at: the
+# counterpart of the reference's per-shape compiled variants
+# (``kernels.ops.prefill_chunk_cache_size``).
+_PREFILL_CHUNK_KEYS: set = set()
+
+
+def prefill_chunk_keys() -> set:
+    return _PREFILL_CHUNK_KEYS
+
+
 def prefill_kv_chunk(params, tokens, k_carry, v_carry, prefix_len: int,
                      chunk_len: int, *, cfg: ModelConfig):
     """One chunk of a position-masked chunked prefill (see
@@ -391,5 +401,8 @@ def prefill_kv_chunk(params, tokens, k_carry, v_carry, prefix_len: int,
     pow2 bucketing of C_pad and S_pad.  With the per-shard trees and
     per-shard carries (L, S_pad, Hkv / M, D), the mesh-sharded chunk
     forward (the reference's ``prefill_kv_chunk_sharded``)."""
+    carry = k_carry[0] if is_sharded(k_carry) else k_carry
+    _PREFILL_CHUNK_KEYS.add((tuple(tokens.shape), tuple(carry.shape),
+                             str(carry.dtype), is_sharded(k_carry)))
     return _prefill_chunk_core(params, tokens, k_carry, v_carry,
                                prefix_len, chunk_len, cfg)
