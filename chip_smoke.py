@@ -104,6 +104,29 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                step, a well-formed event log, its kernels launched) and the
                same smoke with the cache off: each conversation's greedy
                tokens equal, or the first difference a near-tie.
+  5m. control — in process right after 5f, on the engine phase's
+               bundle, workload and pool (160 GPU / 1024 CPU blocks), with
+               the serving kernels' launch counts set to 0 just before
+               (each must launch): the workload through an open-world
+               client under ``FaultPlan.chaos(seed=0, intensity=1.0)``
+               with the sanitizer after every step and the copy watchdog
+               on (at least three fault kinds fire, ``step()`` never
+               raises, every request ends as length, stop, error or shed,
+               every block, swap task and runner row reclaimed, the event
+               log well-formed, every turn finished by length the dense
+               argmax or a near-tie); a poisoned request beside a
+               survivor, a permanent swap-out fault resumed by recompute,
+               and stalled copies the watchdog forces through, each held
+               against a fault-free run (equal, or first different at a
+               near-tie); one request aborted in each lifecycle state
+               (waiting, mid chunked prefill, running, swapped, swapping in
+               with its staged chunk tasks in flight, recompute waiting,
+               finished and retained) beside a survivor so held, each abort
+               followed by the sanitizer, its runner row back on the trash
+               sentinel and no leak once drained, and after the swapping-in
+               abort a new request decoding the dense argmax; a stop token
+               mid-stream ending the turn as stop, its tokens byte-equal
+               to the stop-free run's through the stop token.
   5g. moe    — olmoe-1b-7b at full width (16 layers, d_model 2048, 16 / 16
                heads of 128, 64 experts top-8, random weights from a seed,
                bf16 serving copy only) through the engine phase's workload:
@@ -2247,6 +2270,532 @@ def prefix_phase(bundle, out_dir: Path, device: str = "cuda") -> dict:
             "conversations_equal": equal, "near_ties": ties,
             "tolerance": NEAR_TIE, "callstack_wall_s": r["callstack_wall_s"],
             "stdout": on["stdout"][-4:]}
+
+
+# ---------------------------------------------------------------------------
+# phase 5m: the control plane on the card: faults, aborts, stop tokens
+# ---------------------------------------------------------------------------
+
+CONTROL_FINISHES = ("length", "stop", "error", "shed")
+CONTROL_WATCHDOG_US = 100_000.0
+# the survivors' and stop runs' prompts and budgets (the real cases of
+# tests/test_chaos.py and tests/test_abort_properties.py)
+CONTROL_PROMPT = 12
+CONTROL_TOKENS = 10
+
+
+def control_engine(bundle, sizes: dict, policy: str = "fastswitch",
+                   events=None, chunk: int = 0, stream: bool = False,
+                   **cfg_kw):
+    """A real-mode ``ServingEngine`` over ``bundle`` with the pool of
+    ``sizes`` (the engine phase's), ``policy`` (with chunked prefill of
+    ``chunk`` tokens when > 0), a still priority trace, and the
+    ``EngineConfig`` overrides ``cfg_kw``; ``events`` takes each event."""
+    from dataclasses import replace
+
+    from repro_torch.core import EngineConfig, ServingEngine
+    from repro_torch.data.priority import PriorityTrace
+    cfg = EngineConfig(mode="real", num_gpu_blocks=sizes["gpu_blocks"],
+                       num_cpu_blocks=sizes["cpu_blocks"],
+                       max_running=sizes["max_running"],
+                       max_batch=sizes["max_running"], block_size=16,
+                       seed=SEED, **cfg_kw).with_policy(policy)
+    if chunk:
+        cfg = replace(cfg, policy=replace(cfg.policy,
+                                          chunked_prefill_tokens=chunk))
+    return ServingEngine(cfg, trace=PriorityTrace("random", 1e-9, seed=0),
+                         model_bundle=bundle, event_sink=events,
+                         stream_tokens=stream)
+
+
+def control_ids(bundle, n: int, seed: int) -> list:
+    """``n`` prompt ids drawn from ``seed`` (the tests' ``_ids``)."""
+    import numpy as np
+    return np.random.RandomState(seed).randint(
+        1, bundle["cfg"].vocab_size, size=n).tolist()
+
+
+def drain_engine(eng, max_iters: int = 4000) -> list:
+    """Step ``eng`` until it has no work; its outputs."""
+    outs, it = [], 0
+    while eng.has_work() and it < max_iters:
+        outs += eng.step()
+        it += 1
+    if eng.has_work():
+        raise AssertionError(f"the engine did not drain in {max_iters} "
+                             "steps")
+    return outs
+
+
+def serve_conversations(eng, convs, max_iters: int = 20_000) -> list:
+    """An open-world client: every conversation's first turn submitted at
+    its arrival, each later turn its think time after the previous one
+    finished by length or stop (``synth_prompt_ids`` prompts, as the
+    replay client sends them).  Returns every output."""
+    from repro_torch.core import SamplingParams
+    from repro_torch.data.sharegpt import prompt_for_turn
+    vocab = eng.model_bundle["cfg"].vocab_size
+    by_handle = {c.conv_id: c for c in convs}
+    pending = sorted(convs, key=lambda c: c.arrival_s)
+    sleeping, outs, it = [], [], 0
+    while (pending or sleeping or eng.has_work()) and it < max_iters:
+        now_s = eng.clock.now_us / 1e6
+        while pending and pending[0].arrival_s <= now_s:
+            conv = pending.pop(0)
+            eng.add_request(prompt_for_turn(conv, 0, vocab),
+                            SamplingParams(
+                                max_tokens=conv.turns[0].response_tokens),
+                            handle=conv.conv_id,
+                            retain_kv=len(conv.turns) > 1)
+        for entry in list(sleeping):
+            if entry[0] <= now_s:
+                sleeping.remove(entry)
+                _, conv, tix = entry
+                eng.continue_session(
+                    conv.conv_id, prompt_for_turn(conv, tix, vocab),
+                    SamplingParams(
+                        max_tokens=conv.turns[tix].response_tokens),
+                    retain_kv=tix + 1 < len(conv.turns))
+        wake = [w[0] * 1e6 for w in sleeping]
+        if pending:
+            wake.append(pending[0].arrival_s * 1e6)
+        step = eng.step(until_us=min(wake) if wake else None)
+        outs += step
+        for out in step:
+            conv = by_handle[out.handle]
+            if out.finished and out.finish_reason in ("length", "stop") \
+                    and out.turn + 1 < len(conv.turns):
+                sleeping.append((out.t_us / 1e6 + conv.think_time_s, conv,
+                                 out.turn + 1))
+        it += 1
+    if pending or sleeping or eng.has_work():
+        raise AssertionError(f"the client did not finish in {max_iters} "
+                             "steps")
+    return outs
+
+
+def check_row_clean(eng, rid: int, row) -> None:
+    """The runner row ``row`` that ``rid`` held is back on the trash
+    sentinel: unregistered, every page the trash block, context 0,
+    masked off (nothing to check for a request that held no row)."""
+    runner = eng.runner
+    if rid in runner._rows or rid in runner._prefills:
+        raise AssertionError(f"request {rid} still holds runner state")
+    if row is None:
+        return
+    bt = runner._bt[row].cpu()
+    if not bool((bt == eng._trash_block).all()):
+        raise AssertionError(f"freed row {row} still maps blocks "
+                             f"{bt.tolist()}")
+    if int(runner._ctx[row]) != 0 or bool(runner._active[row]):
+        raise AssertionError(f"freed row {row}: context "
+                             f"{int(runner._ctx[row])}, active "
+                             f"{bool(runner._active[row])}")
+
+
+def check_reclaimed(eng) -> None:
+    """Nothing leaked once no request is live: every swap task retired
+    (the clock run past them), every GPU and CPU block free, no failed
+    task left for a live request, the pool managers' invariants, and
+    every runner row unregistered and masked off, with no prefill carry
+    left."""
+    from repro_torch.core import check_engine_invariants
+    eng.clock.advance(1e9)
+    eng.swap.synchronize(eng.clock, list(eng.swap.ongoing_swap_in)
+                         + list(eng.swap.ongoing_swap_out))
+    eng.swap.poll_completed(eng.clock)
+    check_engine_invariants(eng)
+    gpu, cpu = eng.gpu_mgr, eng.reuse.mgr
+    if gpu.free_blocks() != gpu.num_blocks or \
+            cpu.free_blocks() != cpu.num_blocks:
+        raise AssertionError(f"leaked blocks: GPU {gpu.free_blocks()} of "
+                             f"{gpu.num_blocks} free, CPU "
+                             f"{cpu.free_blocks()} of {cpu.num_blocks}")
+    if eng.swap.ongoing_swap_in or eng.swap.ongoing_swap_out:
+        raise AssertionError("a swap task was stranded")
+    for t in eng.swap.take_failed():
+        if t.req_id in eng.sched.requests:
+            raise AssertionError(f"a failed swap task of live request "
+                                 f"{t.req_id} was never processed")
+    gpu.check_invariants()
+    cpu.check_invariants()
+    runner = eng.runner
+    if runner._rows or runner._prefills:
+        raise AssertionError(f"runner rows {runner._rows} and prefills "
+                             f"{sorted(runner._prefills)} left")
+    if runner._active is not None and bool(runner._active.any()):
+        raise AssertionError("a runner row is still active")
+
+
+def held_tokens(bundle, got, want, start: int, what: str) -> dict:
+    """``got`` (a token history whose first ``start`` tokens are the
+    prompt) against ``want`` (the same request's in a fault-free run):
+    equal, or first different where the dense forward of the shared
+    prefix puts the two tokens within ``NEAR_TIE``.  Returns the
+    generated tokens compared, how many are equal before any difference,
+    and the near-tie."""
+    d = first_divergence(bundle, got, want)
+    if d is None:
+        if len(got) != len(want):
+            raise AssertionError(f"{what}: {len(got)} tokens, the "
+                                 f"fault-free run {len(want)}")
+        return {"generated": len(got) - start, "equal": len(got) - start,
+                "near_tie": None}
+    if d[1] >= NEAR_TIE:
+        raise AssertionError(f"{what}: differs from the fault-free run at "
+                             f"{d[0]} with gap {d[1]} (>= {NEAR_TIE})")
+    return {"generated": len(got) - start, "equal": d[0] - start,
+            "near_tie": {"position": d[0], "gap": d[1]}}
+
+
+def control_chaos(bundle, convs, sizes: dict, events_path: Path) -> dict:
+    """The engine workload under ``FaultPlan.chaos(seed=0, intensity=1.0)``
+    with the sanitizer after every step and the copy watchdog on, through
+    an open-world client: at least three fault kinds fire, ``step()``
+    never raises, every request ends as length, stop, error or shed,
+    nothing leaks, the event log is well-formed, and every turn that
+    finished by length has greedy tokens the dense argmax or a near-tie
+    (``check_history``)."""
+    from repro_torch.core import FaultPlan
+    from repro_torch.launch.serve import validate_event_log
+    with open(events_path, "w") as f:
+        eng = control_engine(
+            bundle, sizes, events=lambda ev: f.write(
+                json.dumps(ev.as_dict()) + "\n"),
+            fault_plan=FaultPlan.chaos(seed=0, intensity=1.0),
+            check_invariants_every=1, swap_watchdog_us=CONTROL_WATCHDOG_US)
+        outs = serve_conversations(eng, convs)
+        eng.shutdown()
+    fired = dict(eng.faults.fired)
+    kinds = sorted(k for k, n in fired.items() if n > 0)
+    if len(kinds) < 3:
+        raise AssertionError(f"chaos fired {fired}: fewer than 3 kinds")
+    m = eng.metrics
+    if m.invariant_checks <= 0:
+        raise AssertionError("the sanitizer never ran")
+    finished = {}
+    for o in outs:
+        if o.finished:
+            finished[(o.handle, o.turn)] = o.finish_reason
+    bad = {k: r for k, r in finished.items() if r not in CONTROL_FINISHES}
+    if bad:
+        raise AssertionError(f"requests ended as {bad}")
+    last = {}
+    for (h, t), r in sorted(finished.items()):
+        last[h] = r
+    if set(last) != {c.conv_id for c in convs}:
+        raise AssertionError(f"conversations {sorted(last)} ended, of "
+                             f"{[c.conv_id for c in convs]}")
+    check_reclaimed(eng)
+    n_events = validate_event_log(str(events_path))
+    rows = []
+    for c in convs:
+        hist = eng._token_hist_by_conv.get(c.conv_id, [])
+        generated, pos = [], 0
+        for tix, turn in enumerate(c.turns):
+            pos += turn.prompt_tokens
+            if finished.get((c.conv_id, tix)) == "length":
+                generated.extend(range(pos, pos + turn.response_tokens))
+            pos += turn.response_tokens
+        if generated:
+            rows.append({"conv": c.conv_id,
+                         **check_history(bundle, hist, generated)})
+    if not rows:
+        raise AssertionError("no turn finished by length under chaos")
+    reasons = {}
+    for r in finished.values():
+        reasons[r] = reasons.get(r, 0) + 1
+    return {"faults_fired": fired, "fault_kinds": kinds,
+            "copy_retries": eng.swap.n_retries,
+            "copy_failures": eng.swap.n_copy_failures,
+            "watchdog_rescues": eng.swap.n_watchdog,
+            "recompute_resumes": m.swap_failure_resumes,
+            "faulted": m.faulted, "shed": m.shed,
+            "preemptions": m.preemptions,
+            "invariant_checks": m.invariant_checks,
+            "turns_by_finish": reasons, "events": n_events,
+            "fenced_swap_ins": eng.pools.fenced_swap_ins,
+            "tokens_checked": sum(r["generated"] for r in rows),
+            "tokens_equal": sum(r["equal"] for r in rows),
+            "near_ties": sum(r["near_ties"] for r in rows),
+            "max_gap": max(r["max_gap"] for r in rows)}
+
+
+def control_containment(bundle, sizes: dict) -> dict:
+    """The real cases of tests/test_chaos.py at full width: a poisoned
+    request beside a survivor, and a permanent swap-out fault after a
+    forced preempt (the request resumes by recompute); and its stalled
+    copy rescued by the watchdog (the copy forced synchronously); each
+    request's tokens held against a fault-free run (``held_tokens``)."""
+    from repro_torch.core import FaultInjector, FaultPlan, SamplingParams
+
+    def pair(plan):
+        eng = control_engine(bundle, sizes, fault_plan=plan,
+                             check_invariants_every=2)
+        hs = [eng.add_request(control_ids(bundle, CONTROL_PROMPT, s),
+                              SamplingParams(max_tokens=CONTROL_TOKENS))
+              for s in (1, 2)]
+        outs = drain_engine(eng)
+        eng.shutdown()
+        check_reclaimed(eng)
+        return hs, {o.handle: o for o in outs if o.finished}, \
+            {h: list(eng._token_hist_by_conv.get(h, [])) for h in hs}
+
+    hs, base_by, base = pair(None)
+    plan = FaultPlan(seed=5, p_poison=0.5)
+    inj = FaultInjector(plan)
+    if inj.poisoned(hs[0]) == inj.poisoned(hs[1]):
+        raise AssertionError("the poison seed does not separate the two "
+                             "requests")
+    hs2, by, hist = pair(plan)
+    poisoned = hs2[0] if inj.poisoned(hs2[0]) else hs2[1]
+    survivor = hs2[1] if poisoned == hs2[0] else hs2[0]
+    if by[poisoned].finish_reason != "error" or \
+            by[survivor].finish_reason != "length":
+        raise AssertionError(f"poison: finishes {by[poisoned].finish_reason}"
+                             f" / {by[survivor].finish_reason}")
+    poison = held_tokens(bundle, hist[survivor], base[survivor],
+                         CONTROL_PROMPT, "the poison survivor")
+
+    def single(plan):
+        eng = control_engine(bundle, sizes, fault_plan=plan,
+                             check_invariants_every=2)
+        h = eng.add_request(control_ids(bundle, CONTROL_PROMPT, 3),
+                            SamplingParams(max_tokens=12))
+        for _ in range(2):
+            eng.step()
+        eng._preempt(h)
+        outs = drain_engine(eng)
+        eng.shutdown()
+        check_reclaimed(eng)
+        fin = [o for o in outs if o.handle == h and o.finished]
+        return (fin[-1].finish_reason, list(eng._token_hist_by_conv[h]),
+                eng.metrics.swap_failure_resumes)
+
+    _, want, _ = single(None)
+    reason, got, resumes = single(FaultPlan(seed=0, p_swap_permanent=1.0))
+    if reason != "length" or resumes < 1:
+        raise AssertionError(f"permanent swap-out fault: {reason}, "
+                             f"{resumes} recompute resumes")
+
+    def stalled(plan):
+        eng = control_engine(bundle, sizes, fault_plan=plan,
+                             swap_watchdog_us=60_000.0,
+                             check_invariants_every=1)
+        eng.swap.adaptive = False                 # force async dispatch
+        h = eng.add_request(control_ids(bundle, 40, 6),
+                            SamplingParams(max_tokens=30))
+        # a second request keeps the engine decoding (its clock moving in
+        # iteration-sized steps) while h's copies sit stalled
+        eng.add_request(control_ids(bundle, 24, 7),
+                        SamplingParams(max_tokens=200))
+        eng.step()
+        eng._preempt(h)
+        outs = drain_engine(eng)
+        eng.shutdown()
+        check_reclaimed(eng)
+        fin = [o for o in outs if o.handle == h and o.finished]
+        return (fin[-1].finish_reason, list(eng._token_hist_by_conv[h]),
+                eng.swap.n_watchdog)
+
+    _, want_w, _ = stalled(None)
+    w_reason, got_w, rescues = stalled(
+        FaultPlan(seed=0, p_swap_stall=1.0, stall_us=5_000_000.0))
+    if w_reason != "length" or rescues < 1:
+        raise AssertionError(f"stalled copies: {w_reason}, {rescues} "
+                             "watchdog rescues")
+    return {"poison": poison, "permanent_swap_out": {
+        **held_tokens(bundle, got, want, CONTROL_PROMPT,
+                      "the recompute resume"),
+        "recompute_resumes": resumes},
+        "stalled_swap": {**held_tokens(bundle, got_w, want_w, 40,
+                                       "the watchdog's rescue"),
+                         "watchdog_rescues": rescues}}
+
+
+def control_aborts(bundle, sizes: dict) -> dict:
+    """At full width, one request aborted in each lifecycle state of
+    tests/test_abort_properties.py's matrix, beside a survivor: after the
+    abort the sanitizer passes, the request's runner row is back on the
+    trash sentinel, and once drained nothing leaks; each survivor's
+    tokens held against the survivor alone (``held_tokens``); after the
+    mid-swap-in abort a new request takes the freed blocks and decodes
+    the dense argmax or a near-tie.  Returns per state the survivor's
+    counts, and the swap-ins fenced by a release event in all."""
+    from repro_torch.core import SamplingParams, check_engine_invariants
+    from repro_torch.core.scheduler import ReqState
+    sp = SamplingParams(max_tokens=CONTROL_TOKENS)
+    survivor_ids = control_ids(bundle, CONTROL_PROMPT, 2)
+    alone = control_engine(bundle, sizes)
+    h = alone.add_request(survivor_ids, sp)
+    drain_engine(alone)
+    alone.shutdown()
+    want = list(alone._token_hist_by_conv[h])
+    del alone
+
+    def waiting(eng, h):
+        return eng._req(h).state == ReqState.WAITING
+
+    def running(eng, h):
+        for _ in range(4):
+            eng.step()
+        return eng._req(h).state == ReqState.RUNNING
+
+    def mid_prefill(eng, h):
+        eng.step()
+        return eng._req(h).prefill_remaining > 0 and h in eng.runner._prefills
+
+    def swapped(eng, h):
+        eng.step()
+        eng._preempt(h)
+        return eng._req(h).state == ReqState.SWAPPED \
+            and eng.reuse.valid_tokens(h) > 0
+
+    def swapping_in(eng, h):
+        eng.swap.adaptive = False                 # force async
+        for _ in range(3):
+            eng.step()
+        eng._preempt(h)
+        return eng._swap_in(h) is False and sum(
+            t.req_id == h for t in eng.swap.ongoing_swap_in) > 1
+
+    def recompute_waiting(eng, h):
+        eng.step()
+        eng._preempt(h)
+        req = eng._req(h)
+        return req.state == ReqState.WAITING and req.resume_tokens > 0
+
+    def finished_retained(eng, h):
+        drain_engine(eng)
+        return h in eng.parked and eng.reuse.valid_tokens(h) > 0
+
+    cases = {
+        # state: (setup, policy, chunked prefill, engine overrides,
+        #         victim prompt tokens, victim budget, retain)
+        "waiting": (waiting, "fastswitch", 0, {}, 8, 40, False),
+        "mid_chunked_prefill": (mid_prefill, "fastswitch", 16, {}, 80, 4,
+                                False),
+        "running": (running, "fastswitch", 0, {}, 10, 30, False),
+        "swapped": (swapped, "fastswitch", 0, {}, 8, 40, False),
+        "swapping_in": (swapping_in, "fastswitch", 0,
+                        {"swap_chunk_blocks": 1}, 40, 30, False),
+        "recompute_waiting": (recompute_waiting, "vllm-recompute", 0, {},
+                              8, 40, False),
+        "finished_retained": (finished_retained, "fastswitch", 0, {}, 8, 3,
+                              True),
+    }
+    out, fenced = {}, 0
+    for state, (setup, policy, chunk, kw, n, budget, retain) in \
+            cases.items():
+        eng = control_engine(bundle, sizes, policy=policy, chunk=chunk, **kw)
+        victim = eng.add_request(control_ids(bundle, n, 4),
+                                 SamplingParams(max_tokens=budget),
+                                 retain_kv=retain)
+        survivor = eng.add_request(survivor_ids, sp)
+        if not setup(eng, victim):
+            raise AssertionError(f"abort in {state}: the scenario never "
+                                 "reached the state")
+        row = eng.runner._rows.get(victim)
+        if not eng.abort(victim):
+            raise AssertionError(f"abort in {state} returned False")
+        check_engine_invariants(eng)
+        check_row_clean(eng, victim, row)
+        rec = {"had_row": row is not None}
+        if state == "swapping_in":
+            # a new request takes the freed blocks over
+            ids = control_ids(bundle, CONTROL_PROMPT, 5)
+            succ = eng.add_request(ids, SamplingParams(max_tokens=6))
+        drain_engine(eng)
+        eng.shutdown()
+        check_reclaimed(eng)
+        rec["survivor"] = held_tokens(
+            bundle, list(eng._token_hist_by_conv[survivor]), want,
+            CONTROL_PROMPT, f"the survivor of an abort in {state}")
+        if state == "swapping_in":
+            hist = list(eng._token_hist_by_conv[succ])
+            rec["successor"] = check_history(
+                bundle, hist, list(range(len(ids), len(hist))))
+            if rec["successor"]["generated"] != 6:
+                raise AssertionError(f"the successor decoded "
+                                     f"{rec['successor']['generated']} "
+                                     "tokens, not 6")
+        if eng.metrics.aborted != 1:
+            raise AssertionError(f"abort in {state}: {eng.metrics.aborted} "
+                                 "aborts counted")
+        fenced += eng.pools.fenced_swap_ins
+        out[state] = rec
+        del eng
+    return {"by_state": out, "fenced_swap_ins": fenced}
+
+
+def control_stop(bundle, sizes: dict, prompt_tokens: int = 256,
+                 budget: int = 32) -> dict:
+    """A stop token placed mid-stream: of the stop-free run's tokens, the
+    last to appear for the first time before the final one (random
+    weights repeat tokens) becomes the stop set; the turn ends as stop,
+    its streamed tokens byte-equal to the stop-free run's up to and
+    including it."""
+    from repro_torch.core import SamplingParams
+    from repro_torch.data.sharegpt import synth_prompt_ids
+    prompt = synth_prompt_ids(0, 0, prompt_tokens, bundle["cfg"].vocab_size)
+
+    def run(stop):
+        eng = control_engine(bundle, sizes, stream=True)
+        eng.add_request(prompt, SamplingParams(max_tokens=budget,
+                                               stop_token_ids=stop))
+        outs = drain_engine(eng)
+        eng.shutdown()
+        check_reclaimed(eng)
+        fin = [o for o in outs if o.finished]
+        return [t for o in outs if o.token_ids for t in o.token_ids], fin
+
+    free, fin = run(())
+    if len(free) != budget or fin[0].finish_reason != "length":
+        raise AssertionError(f"stop-free run: {len(free)} tokens, "
+                             f"{fin[0].finish_reason}")
+    firsts = [i for i in range(1, budget - 1) if free[i] not in free[:i]]
+    if not firsts:
+        raise AssertionError(f"stop-free run {free}: no token first "
+                             "appears mid-stream")
+    cut = firsts[-1]
+    stop = free[cut]
+    got, fin = run((stop,))
+    if fin[0].finish_reason != "stop" or got != free[:cut + 1] or \
+            fin[0].generated != cut + 1:
+        raise AssertionError(f"stop token {stop}: {fin[0].finish_reason}, "
+                             f"{len(got)} tokens, the stop-free prefix "
+                             f"{cut + 1}; equal {got == free[:cut + 1]}")
+    return {"stop_token": stop, "stop_at": cut, "tokens": len(got),
+            "byte_equal_prefix": True}
+
+
+def control_phase(bundle, convs, sizes: dict, out_dir: Path) -> dict:
+    """The control plane's fault, abort and stop paths on ``bundle``'s
+    device (``control_chaos``, ``control_containment``, ``control_aborts``,
+    ``control_stop``), with the serving kernels' launch counts set to 0
+    just before; on CUDA each must have launched."""
+    from repro_torch.kernels import block_copy as bc
+    from repro_torch.kernels import paged_attention as pa
+    kernels = {"paged_attention": pa.paged_attention,
+               "block_gather_runs": bc.block_gather_runs,
+               "block_scatter_runs": bc.block_scatter_runs}
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = {"chaos": control_chaos(bundle, convs, sizes,
+                                  out_dir / "control_events.jsonl"),
+           "containment": control_containment(bundle, sizes),
+           "aborts": control_aborts(bundle, sizes),
+           "stop": control_stop(bundle, sizes)}
+    res["seconds"] = time.perf_counter() - t0
+    res["launches"] = {name: k.launches for name, k in kernels.items()}
+    if bundle["params"]["embed"]["table"].is_cuda and \
+            min(res["launches"].values()) <= 0:
+        raise AssertionError(f"control: a kernel never launched: "
+                             f"{res['launches']}")
+    res["fenced_swap_ins"] = (res["chaos"]["fenced_swap_ins"]
+                              + res["aborts"]["fenced_swap_ins"])
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -5163,6 +5712,13 @@ def main() -> int:
         px = prefix_phase(bundle, Path(tmp))
     emit("prefix", nvidia_smi=smi[0], **px)
 
+    # 5m. the control plane's fault, abort and stop paths on the engine
+    # phase's bundle and pool: chaos, containment, an abort in each
+    # lifecycle state, a stop token
+    with tempfile.TemporaryDirectory() as tmp:
+        ctl = control_phase(bundle, convs, sizes, Path(tmp))
+    emit("control", nvidia_smi=smi[0], **ctl)
+
     # 5g. MoE serving: olmoe-1b-7b at full width, then its launcher, in a
     # process of its own
     torch.cuda.empty_cache()
@@ -5276,6 +5832,7 @@ def main() -> int:
                 "frontend_per_replica": [c[kname] for c in
                                          fe["launches_per_replica"]],
                 "prefix_launcher": px["kernel_launches"][kname],
+                "control": ctl["launches"][kname],
                 "moe_engine": mo["launches"][kname],
                 "moe_launcher": mo["launcher"]["kernel_launches"][kname],
                 "dryrun_serving": dr["serving"]["kernel_launches"][kname],

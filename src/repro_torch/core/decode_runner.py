@@ -680,6 +680,11 @@ class DecodeRunner:
             k_carry=k_c, v_carry=v_c)
         return len(toks) - start
 
+    def prefill_pending(self, rid: int) -> int:
+        """Tokens the open prefill for ``rid`` has left to process."""
+        st = self._prefills[rid]
+        return len(st.toks) - st.pos
+
     def prefill_chunk_compute(self, rid: int, n_tokens: int) -> Optional[Tuple]:
         """Compute KV for the next ``n_tokens`` of the open prefill: one
         bucketed chunk forward attending the carry buffers.  Non-final
@@ -771,3 +776,17 @@ class DecodeRunner:
         self.stats.prefills += 1
         self._register(view)
         return pool
+
+    def prefill(self, view: DecodeRequestView, pool, *,
+                emit_first: bool, reused_tokens: int = 0):
+        """A whole-prompt prefill back to back, for single-threaded
+        callers (tests, tools): begin (the carry seeded from the pool's
+        first ``reused_tokens`` positions), one chunk over the rest, the
+        first-token emit, the insert.  The pool is written in place and
+        returned."""
+        total = self.prefill_begin(view, emit_first=emit_first,
+                                   reused_tokens=reused_tokens,
+                                   pool=pool if reused_tokens else None)
+        staged = self.prefill_chunk_compute(view.rid, total)
+        self._prefill_emit(self._prefills[view.rid])
+        return self.prefill_insert(view, pool, staged)
