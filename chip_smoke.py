@@ -127,6 +127,23 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                abort a new request decoding the dense argmax; a stop token
                mid-stream ending the turn as stop, its tokens byte-equal
                to the stop-free run's through the stop token.
+  5n. reuse  — right after 5m, in a process of its own
+               (``scripts/reuse_probe.py``): qwen2-1.5b at full width
+               (random fp32 weights from seed 0, as the engine phase) on
+               the engine phase's workload with 160 GPU blocks and a host
+               pool of 256, then 192, blocks (117 and 88 MB), the serving
+               kernels' launch counts set to 0 before each run: KV reuse's
+               copies are contaminated, and some requests are swapped back in
+               over a copy valid for fewer positions than hold their KV.
+               Each run must finish every turn, restore no block past a
+               copy's valid prefix (``watch_swap_ins``), resume at least
+               one short copy by restoring its valid prefix and
+               recomputing the rest (``short_copy_resumes``), serve every
+               greedy token as the dense argmax or a near-tie, and launch
+               each serving kernel; per size the contaminations, swap-ins
+               and those over a short copy, the restored and recomputed
+               tokens, the wall.  The engine phase's 1024-block pool must
+               resume none.
   5g. moe    — olmoe-1b-7b at full width (16 layers, d_model 2048, 16 / 16
                heads of 128, 64 experts top-8, random weights from a seed,
                bf16 serving copy only) through the engine phase's workload:
@@ -278,6 +295,14 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                ``preemptions`` lines read) and ``python
                examples/torch_train_lm.py --steps 50`` (exit 0, the loss
                falls, the checkpoint round-trips byte for byte).
+  5o. dev    — the dev scripts as three subprocesses at once on the card:
+               ``scripts/torch_dev_kernels.py`` (paged attention, per-block
+               and grouped copies at ``scripts/dev_kernels.py``'s sizes,
+               each against its plain version: copies byte-equal, paged
+               attention within phase 3's bound; their launches),
+               ``torch_dev_engine.py 20`` (sim mode, four policies, the
+               same tokens each) and ``torch_dev_smoke.py`` (the ten smoke
+               archs' forward, train step, prefill and 3 decode steps).
   6. device_times — the device time of each phase-3 kernel and library
                call alone: their CUDA kernels under ``torch.profiler``, the
                wrapper's host time left out.  After the engine phases,
@@ -305,8 +330,10 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                group; the 2 x 16 x 16 mesh's train cases trace for minutes
                each, so it is left to the CLI; CPU only, started in
                the background after phase 2 in ``DRYRUN_JOBS`` processes at
-               a lower priority): ok, skipped (the long_500k rule only) and
-               failed cases counted, none may fail; ``--serving`` at full
+               a lower priority; its seconds taken when it exits, and the
+               seconds phase 7 waited for it): ok, skipped (the long_500k
+               rule only) and failed cases counted, none may fail;
+               ``--serving`` at full
                width on the card (three requests, one aborted: its tokens,
                decode-graph variants and kernel launches); ``--audit-jit``
                on qwen2-1.5b at full width (exit 0: fslint's static FS002
@@ -1335,13 +1362,14 @@ def _count_swaps(swap):
 
 
 def run_engine(bundle, convs, *, gpu_blocks: int, cpu_blocks: int,
-               max_running: int, seed: int = 13, mesh=(1, 1)):
+               max_running: int, seed: int = 13, mesh=(1, 1),
+               on_engine=None):
     """Serve ``convs`` through the replay client of ``ServingEngine`` in
     real mode (fastswitch policy, a random priority storm) on ``mesh``
-    (the bundle's ``mesh_devices`` name its devices).  Returns
-    (engine, wall seconds, host seconds by method, data-moving swaps by
-    (request id, direction)); the wall time ends in a device
-    synchronise."""
+    (the bundle's ``mesh_devices`` name its devices); ``on_engine`` is
+    called with the engine before it runs.  Returns (engine, wall
+    seconds, host seconds by method, data-moving swaps by (request id,
+    direction)); the wall time ends in a device synchronise."""
     import torch
     from repro_torch.core import EngineConfig, FastSwitchEngine
     from repro_torch.data.priority import PriorityTrace
@@ -1360,6 +1388,8 @@ def run_engine(bundle, convs, *, gpu_blocks: int, cpu_blocks: int,
                           (eng.pools, "copy_out_staged"),
                           (eng.pools, "copy_in_staged")])
     swaps = _count_swaps(eng.swap)
+    if on_engine is not None:
+        on_engine(eng)
     t0 = time.perf_counter()
     eng.run(max_iterations=100_000)
     if torch.cuda.is_available():
@@ -2796,6 +2826,127 @@ def control_phase(bundle, convs, sizes: dict, out_dir: Path) -> dict:
     res["fenced_swap_ins"] = (res["chaos"]["fenced_swap_ins"]
                               + res["aborts"]["fenced_swap_ins"])
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 5n: KV reuse under a short CPU pool: contaminated copies
+# ---------------------------------------------------------------------------
+
+# the engine phase's workload with a host pool this many blocks long: both
+# sizes contaminate copies, and swap some requests back in over a copy
+# shorter than their context
+REUSE_CPU_BLOCKS = (256, 192)
+
+
+def watch_swap_ins(core) -> dict:
+    """Record the swap-ins of ``core``, a ``ServingEngine`` of either
+    package: each ``_swap_in`` call as (request, context tokens, valid
+    tokens of its CPU copy), and each swap-in dispatch as (request, first
+    and end position of the blocks it restores, the copy's valid tokens,
+    the positions holding KV, ``context_tokens - 1``).  A copy's valid
+    tokens are capped by the CPU blocks it holds, as the port's
+    ``reuse.restorable_tokens``.  Returns the two lists, filled as the
+    engine runs."""
+    seen = {"swap_ins": [], "restores": []}
+    real_in, real_dispatch = core._swap_in, core._dispatch_swap
+    bs = core.config.block_size
+
+    def valid(rid):
+        c = core.reuse.copies.get(rid)
+        return min(c.valid_tokens, core.reuse.mgr.request_tokens(rid)) \
+            if c is not None else 0
+
+    def swap_in(rid):
+        seen["swap_ins"].append((rid, core._req(rid).context_tokens,
+                                 valid(rid)))
+        return real_in(rid)
+
+    def dispatch(rid, direction, gpu_runs, *a, **k):
+        if direction == "in" and gpu_runs:
+            first = core._block_table(rid).index(gpu_runs[0][0])
+            n = sum(n for _, n in gpu_runs)
+            seen["restores"].append(
+                (rid, first * bs, (first + n) * bs, valid(rid),
+                 core._req(rid).context_tokens - 1))
+        return real_dispatch(rid, direction, gpu_runs, *a, **k)
+    core._swap_in, core._dispatch_swap = swap_in, dispatch
+    return seen
+
+
+def past_valid_prefix(restores, block_size: int = 16) -> list:
+    """The restores (``watch_swap_ins``) that copy a block starting at or
+    past their copy's valid prefix and before the positions holding KV
+    end: stale KV the engine would attend."""
+    def ceil(n):
+        return -(-n // block_size) * block_size
+    return [r for r in restores
+            if max(r[1], ceil(r[3])) < min(r[2], r[4])]
+
+
+def short_swap_ins(swap_ins) -> list:
+    """The swap-ins (``watch_swap_ins``) of a request whose CPU copy is
+    valid for fewer positions than hold its KV."""
+    return [s for s in swap_ins if s[2] < s[1] - 1]
+
+
+def reuse_phase(bundle, convs, sizes: dict,
+                cpu_blocks=REUSE_CPU_BLOCKS) -> dict:
+    """The engine phase's workload on ``bundle`` with each host pool of
+    ``cpu_blocks`` blocks (the other ``sizes`` as given), the serving
+    kernels' launch counts set to 0 just before each run.  Each run must
+    finish every turn, restore no block past a copy's valid prefix, meet
+    at least one short copy and resume it (``short_copy_resumes``), serve
+    every greedy token as the dense argmax or a near-tie, and, on CUDA,
+    launch each serving kernel.  Returns one record per size."""
+    from repro_torch.kernels import block_copy as bc
+    from repro_torch.kernels import launches
+    from repro_torch.kernels import paged_attention as pa
+    kernels = {"paged_attention": pa.paged_attention,
+               "block_gather_runs": bc.block_gather_runs,
+               "block_scatter_runs": bc.block_scatter_runs}
+    out = {}
+    for n_cpu in cpu_blocks:
+        seen = {}
+        launches.reset(*kernels.values())
+        eng, wall, _, swaps = run_engine(
+            bundle, convs, **dict(sizes, cpu_blocks=n_cpu),
+            on_engine=lambda e: seen.update(watch_swap_ins(e.core)))
+        launched = {k: w.launches for k, w in kernels.items()}
+        checked = check_engine(eng, convs, swaps, every_conv_swapped=False)
+        stale = past_valid_prefix(seen["restores"], eng.config.block_size)
+        if stale:
+            raise AssertionError(f"reuse at {n_cpu} CPU blocks: restores "
+                                 f"past the valid prefix (request, first, "
+                                 f"end, valid, KV positions): {stale}")
+        st = eng.reuse.stats()
+        if st["short_copy_resumes"] < 1:
+            raise AssertionError(f"reuse at {n_cpu} CPU blocks: no short "
+                                 f"copy resumed: {st}")
+        tokens = [check_tokens(eng, bundle, c) for c in convs]
+        if bundle["params"]["embed"]["table"].is_cuda and \
+                min(launched.values()) <= 0:
+            raise AssertionError(f"reuse at {n_cpu} CPU blocks: a kernel "
+                                 f"never launched: {launched}")
+        out[str(n_cpu)] = {
+            "host_pool_mb": n_cpu * eng.block_bytes / 1e6,
+            "contaminations": st["contaminations"],
+            "swap_ins": len(seen["swap_ins"]),
+            "short_copy_swap_ins": len(
+                short_swap_ins(seen["swap_ins"])),
+            "restores_past_valid_prefix": len(stale),
+            "short_copy_resumes": st["short_copy_resumes"],
+            "short_copy_restored_tokens": st["short_copy_restored_tokens"],
+            "short_copy_recomputed_tokens":
+                st["short_copy_recomputed_tokens"],
+            "wall_s": wall, "launches": launched,
+            "preemptions": checked["preemptions"],
+            "prefill_chunks": checked["prefill_chunks"],
+            "greedy_equal": sum(r["equal"] for r in tokens),
+            "greedy_near_ties": sum(r["near_ties"] for r in tokens),
+            "greedy_max_gap": max(r["max_gap"] for r in tokens),
+            "tolerance": NEAR_TIE}
+        eng.shutdown()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5067,14 +5218,16 @@ TRAIN_LM_DONE = re.compile(r"^loss ([\d.]+) -> ([\d.]+); checkpoint "
                            r"round-trip OK ")
 
 
-def run_example(script: str, args=(), timeout: float = 600.0) -> dict:
-    """``python examples/SCRIPT ARGS`` from the checkout's root; raises on
-    a non-zero exit.  Returns {"wall_s", "stdout": its lines}."""
+def run_example(script: str, args=(), timeout: float = 600.0,
+                folder: Path = EXAMPLES) -> dict:
+    """``python FOLDER/SCRIPT ARGS`` (``examples/`` by default) from the
+    checkout's root; raises on a non-zero exit.  Returns {"wall_s",
+    "stdout": its lines}."""
     import os
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, str(EXAMPLES / script), *args],
+    proc = subprocess.run([sys.executable, str(folder / script), *args],
                           cwd=ROOT, env=env, capture_output=True, text=True,
                           timeout=timeout)
     wall = time.perf_counter() - t0
@@ -5182,6 +5335,66 @@ def examples_phase(device, params=None, train_steps: int = 50) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 5o: the dev scripts (scripts/torch_dev_{engine,kernels,smoke}.py)
+# ---------------------------------------------------------------------------
+
+SCRIPTS = ROOT / "scripts"
+DEV_KERNEL = re.compile(r"^(paged_attention|block_copy|block_copy_grouped) "
+                        r"maxerr (\S+)$")
+DEV_ENGINE = re.compile(r"^(\S+) +p99ttft= *([\d.]+)ms .* tok=(\d+) .*"
+                        r"short_copy_resumes=(\d+)$")
+DEV_SMOKE = re.compile(r"^(OK|FAIL) +(\S+?):? ")
+
+
+def dev_phase(device, conversations: int = 20, archs=()) -> dict:
+    """The dev scripts as three subprocesses at once on ``device`` (no
+    flag on ``cuda``, ``--device cpu`` on the CPU): ``torch_dev_kernels.py``
+    (each kernel within its bound of its plain version: the copies
+    byte-equal, paged attention as the script holds it),
+    ``torch_dev_engine.py CONVERSATIONS`` (four policies, every one the
+    same tokens) and ``torch_dev_smoke.py ARCHS`` (all ten by default;
+    every one OK).  Exit 0 each, their lines read."""
+    from concurrent.futures import ThreadPoolExecutor
+    flag = [] if str(device) == "cuda" else ["--device", "cpu"]
+    out = {}
+    # the three processes run at once: each waits mostly on its start-up
+    # and on the card, not on this host
+    with ThreadPoolExecutor(3) as pool:
+        futures = [pool.submit(run_example, script, args, folder=SCRIPTS)
+                   for script, args in (
+                       ("torch_dev_kernels.py", flag),
+                       ("torch_dev_engine.py", [str(conversations), *flag]),
+                       ("torch_dev_smoke.py", [*archs, *flag]))]
+        kernels_run, engine_run, smoke_run = [f.result() for f in futures]
+    run = kernels_run
+    errs = {m[1]: float(m[2]) for m in map(DEV_KERNEL.match, run["stdout"])
+            if m}
+    if set(errs) != {"paged_attention", "block_copy", "block_copy_grouped"} \
+            or errs["block_copy"] != 0 or errs["block_copy_grouped"] != 0:
+        raise AssertionError(f"torch_dev_kernels: {run['stdout']}")
+    launched = next((ln for ln in run["stdout"]
+                     if ln.startswith("launches ")), None)
+    out["kernels"] = {"wall_s": run["wall_s"], "max_abs_err": errs,
+                      "launches": json.loads(launched[9:]) if launched
+                      else None}
+    run = engine_run
+    rows = {m[1]: {"a10_modelled_p99_ttft_ms": float(m[2]),
+                   "tokens": int(m[3]), "short_copy_resumes": int(m[4])}
+            for m in map(DEV_ENGINE.match, run["stdout"]) if m}
+    if list(rows) != ["vllm", "+dbg", "+dbg+reuse", "fastswitch"] or \
+            len({r["tokens"] for r in rows.values()}) != 1:
+        raise AssertionError(f"torch_dev_engine: {run['stdout']}")
+    out["engine"] = {"wall_s": run["wall_s"],
+                     "conversations": conversations, "policies": rows}
+    run = smoke_run
+    done = {m[2]: m[1] for m in map(DEV_SMOKE.match, run["stdout"]) if m}
+    if len(done) != (len(archs) or 10) or set(done.values()) != {"OK"}:
+        raise AssertionError(f"torch_dev_smoke: {run['stdout']}")
+    out["smoke"] = {"wall_s": run["wall_s"], "archs": sorted(done)}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the dry-run and roofline tools
 # ---------------------------------------------------------------------------
 
@@ -5207,11 +5420,26 @@ def _dryrun_env() -> dict:
         [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
 
 
+def watch_exit(proc, t0: float) -> dict:
+    """Drain ``proc``'s pipes on a thread of its own, which notes when
+    the process ended: the returned dict gets ``stdout``, ``stderr`` and
+    ``seconds`` (since ``t0``) then; join its ``thread`` to wait."""
+    done = {}
+
+    def drain():
+        done["stdout"], done["stderr"] = proc.communicate()
+        done["seconds"] = time.perf_counter() - t0
+    done["thread"] = threading.Thread(target=drain, daemon=True)
+    done["thread"].start()
+    return done
+
+
 def start_dryrun_all(out_dir: Path, multi_pod: str = "off",
                      jobs: int = DRYRUN_JOBS, extra=()):
     """``python -m repro_torch.launch.dryrun --all`` on the production
     meshes, in the background at a lower priority (it needs no device);
-    returns (process, output JSON path, start time)."""
+    returns (process, output JSON path, start time, ``watch_exit``'s
+    record of it)."""
     import os
     out = out_dir / "dryrun_all.json"
     proc = subprocess.Popen(
@@ -5220,7 +5448,8 @@ def start_dryrun_all(out_dir: Path, multi_pod: str = "off",
         cwd=ROOT, env=_dryrun_env(), stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True,
         preexec_fn=lambda: os.nice(19))
-    return proc, out, time.perf_counter()
+    t0 = time.perf_counter()
+    return proc, out, t0, watch_exit(proc, t0)
 
 
 def dryrun_counts(stdout: str) -> dict:
@@ -5418,9 +5647,14 @@ def dryrun_phase(device, bg, out_dir: Path) -> dict:
     serving case and the graph-and-bucket audit on the card, the (1, 1)
     cross-check."""
     import torch
-    proc, out, t0 = bg
-    stdout, stderr = proc.communicate(timeout=1800)
-    seconds = time.perf_counter() - t0
+    proc, out, t0, done = bg
+    waited = time.perf_counter()
+    done["thread"].join(timeout=1800)
+    if done["thread"].is_alive():
+        proc.kill()
+        raise AssertionError("the dry-run's --all ran past 1800 s")
+    waited = time.perf_counter() - waited
+    stdout, seconds = done["stdout"], done["seconds"]
     counts = check_dryrun_all(stdout, proc.returncode)
     results = json.loads(out.read_text())
     ok = [r for r in results if r["status"] == "ok"]
@@ -5435,7 +5669,8 @@ def dryrun_phase(device, bg, out_dir: Path) -> dict:
     cross = dryrun_cross_check(device, out_dir)
     return {"all": {**{k: v for k, v in counts.items()
                        if k != "skipped_cases"},
-                    "seconds": seconds, "torch": torch.__version__,
+                    "seconds": seconds, "phase_waited_s": waited,
+                    "torch": torch.__version__,
                     "jobs": DRYRUN_JOBS, "slowest_traces_s": traces[:5],
                     "fallbacks_and_decompositions": fallbacks,
                     "cases": [{k: r.get(k) for k in (
@@ -5622,6 +5857,10 @@ def main() -> int:
                              f"{launches['paged_attention']} times over "
                              f"{stats['decode_steps']} decode steps of "
                              f"{cfg.n_layers} layers")
+    short = eng.reuse.stats()["short_copy_resumes"]
+    if short:
+        raise AssertionError(f"the engine phase's 1024-block host pool "
+                             f"resumed {short} short copies")
     summ = eng.metrics.summary()
     emit("engine", arch=ARCH, device=name, nvidia_smi=smi[0],
          wall_s=wall, cold_wall_s=cold_wall,
@@ -5629,6 +5868,7 @@ def main() -> int:
          earlier_staged_s=EARLIER_STAGED_S[ARCH],
          clock_hold_wait_s=hold["wait_s"],
          tokens_equal_warm_up=True, launches=launches, **stats,
+         short_copy_resumes=short,
          a10_modelled_p50_ttft_ms=summ["p50_ttft_ms"],
          a10_modelled_p99_tbt_ms=summ["p99_tbt_ms"],
          a10_modelled_throughput_tok_s=summ["throughput_tok_s"])
@@ -5719,6 +5959,15 @@ def main() -> int:
         ctl = control_phase(bundle, convs, sizes, Path(tmp))
     emit("control", nvidia_smi=smi[0], **ctl)
 
+    # 5n. KV reuse under short host pools: the engine phase's workload
+    # with 256 and 192 CPU blocks, contaminated copies resumed by
+    # restoring their valid prefix and recomputing the rest, in a process
+    # of its own (its engines' graphs and pools stay out of this one's
+    # memory, which the families phase needs)
+    torch.cuda.empty_cache()
+    reuse = phase_alone("reuse")
+    emit("reuse", **reuse)
+
     # 5g. MoE serving: olmoe-1b-7b at full width, then its launcher, in a
     # process of its own
     torch.cuda.empty_cache()
@@ -5757,6 +6006,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     ex = phase_alone("examples")
     emit("examples", **ex)
+
+    # 5o. the dev scripts, as subprocesses
+    t0 = time.perf_counter()
+    dev_run = dev_phase("cuda")
+    emit("dev", nvidia_smi=smi[0], seconds=time.perf_counter() - t0,
+         **dev_run)
 
     # 6. device times of phase 3's calls, after the timed engine runs
     for t in all_timed.values():
@@ -5837,6 +6092,8 @@ def main() -> int:
                 "moe_launcher": mo["launcher"]["kernel_launches"][kname],
                 "dryrun_serving": dr["serving"]["kernel_launches"][kname],
                 "examples_llama3p2_3b": ex["launches"][kname],
+                **{f"reuse_cpu{n}": reuse[str(n)]["launches"][kname]
+                   for n in REUSE_CPU_BLOCKS},
                 **{f"mesh_{part}_1x{len(m['launches_per_shard'][kname])}": {
                     "total": m["launches"][kname],
                     "per_shard": m["launches_per_shard"][kname]}
@@ -5851,6 +6108,12 @@ def main() -> int:
             "library_device_ms_by": times["library_device_ms_by"],
             "bound_share": b_ms / times["device_ms"],
             "library_device_ms": times["library_device_ms"]})
+    dev_launches = dev_run["kernels"]["launches"]
+    rows[0]["launches_by_path"]["dev_kernels"] = \
+        dev_launches["paged_attention"]
+    for row in rows[3:5]:
+        row["launches_by_path"] = {"ops": row["launches"],
+                                   "dev_kernels": dev_launches[row["name"]]}
     rows[-1]["library"] = "none: no single PyTorch call computes the scan"
     # the scan: launches on each path; its times at the prefill's shape
     rows[-1]["launches_by_path"] = {

@@ -31,6 +31,10 @@ Invariant catalog (each clause is one numbered check below):
   R1  reuse copies: ``valid_tokens <= stored_tokens`` and valid +
       prealloc fits the CPU allocation.
   R2  CPU pool accounting (allocator self-check).
+  R3  resident KV: a RUNNING request with no prefill pending holds KV,
+      restored or computed, for all of its ``context_tokens - 1``
+      positions — no swap-in left positions past its copy's valid
+      prefix unwritten (``Request.kv_gap``).
   S1  incomplete ongoing swap-IN tasks' rids are live and SWAPPING_IN
       (sync and retired tasks excluded; the reverse is NOT an invariant:
       a task can complete a poll before its request promotes).
@@ -168,6 +172,16 @@ def check_engine_invariants(eng) -> None:
             v.append(f"R1: rid {rid} reuse valid {copy.valid_tokens} + "
                      f"prealloc {copy.prealloc_tokens} > cpu capacity "
                      f"{cap}")
+
+    # R3: resident KV ---------------------------------------------------
+    for rid in live:
+        req = sched.requests[rid]
+        if req.state is ReqState.RUNNING and req.prefill_remaining == 0 \
+                and req.kv_gap is not None:
+            lo, hi = req.kv_gap
+            v.append(f"R3: running rid {rid} holds no KV for positions "
+                     f"[{lo}, {hi}): its swap-in restored them from a copy "
+                     f"valid to {lo}")
 
     # S1/S2: swap tasks ------------------------------------------------
     n_pool = eng.config.num_gpu_blocks

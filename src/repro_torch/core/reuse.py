@@ -46,6 +46,12 @@ class KVCacheReuseManager:
         # contamination victim regardless of its true priority
         self.priority_fn: Optional[Callable[[int], float]] = None
         self.n_contaminations = 0
+        # swap-ins of a copy shorter than the request's KV, resumed by
+        # restoring the valid prefix and recomputing the rest (the
+        # engine's ``_resume_short_copy``), with the tokens of each part
+        self.n_short_copy_resumes = 0
+        self.short_copy_restored_tokens = 0
+        self.short_copy_recomputed_tokens = 0
 
     # ------------------------------------------------------------------
 
@@ -63,6 +69,24 @@ class KVCacheReuseManager:
     def valid_tokens(self, req_id: int) -> int:
         c = self.copies.get(req_id)
         return c.valid_tokens if (c and self.enabled) else 0
+
+    def restorable_tokens(self, req_id: int) -> int:
+        """Leading positions a swap-in may restore from the copy: its
+        valid prefix, never past the CPU blocks it still holds, whether
+        or not reuse across turns is enabled (the disabled baseline
+        re-writes the whole context at each swap-out, and its copy too
+        is contaminated and truncated for want of CPU blocks)."""
+        c = self.copies.get(req_id)
+        if c is None:
+            return 0
+        return min(c.valid_tokens, self.mgr.request_tokens(req_id))
+
+    def note_short_copy_resume(self, restored: int, recomputed: int) -> None:
+        """Count one swap-in resumed from a short copy: ``restored``
+        tokens came from the copy, ``recomputed`` are computed again."""
+        self.n_short_copy_resumes += 1
+        self.short_copy_restored_tokens += restored
+        self.short_copy_recomputed_tokens += recomputed
 
     def plan_swap_out(self, req_id: int, total_tokens: int) -> int:
         """Tokens that actually need transfer (the increment)."""
@@ -255,4 +279,8 @@ class KVCacheReuseManager:
         return {"cpu_copies": len(self.copies),
                 "cpu_free_blocks": self.mgr.free_blocks(),
                 "contaminations": self.n_contaminations,
+                "short_copy_resumes": self.n_short_copy_resumes,
+                "short_copy_restored_tokens": self.short_copy_restored_tokens,
+                "short_copy_recomputed_tokens":
+                    self.short_copy_recomputed_tokens,
                 **{f"cpu_{k}": v for k, v in g.items()}}

@@ -45,6 +45,10 @@ class Request:
     prefill_remaining: int = 0   # chunked prefill: tokens still to process
     prefill_is_resume: bool = False  # chunked RECOMPUTE resume: no first
     #                                  token on completion (serving §6)
+    # positions [lo, hi) that the last swap-in left without KV (its copy
+    # was valid only to lo) and no recomputation has written since; set
+    # by every path into RUNNING, read by invariant R3
+    kv_gap: Optional[Tuple[int, int]] = None
     # serving-API surface (core/serving.py): per-request parameters and
     # streaming / SLO bookkeeping
     sampling: object = None        # request_api.SamplingParams

@@ -956,10 +956,12 @@ class ServingEngine:
     # ------------------------------------------------------------------
 
     def _swap_out(self, rid: int, keep_copy: bool,
-                  last_slot_written: bool = False) -> None:
+                  kv_tokens: Optional[int] = None) -> None:
         """Preempt: move KV to CPU.  With reuse, only the increment beyond
         the valid CPU copy is transferred.  In recompute mode the KV is
-        simply dropped (resumption re-prefills the whole context)."""
+        simply dropped (resumption re-prefills the whole context).
+        ``kv_tokens``: the leading positions that hold written KV, when
+        not the decoding request's ``context_tokens - 1`` (below)."""
         req = self._req(rid)
         if self.config.policy.preemption_mode == "recompute":
             self.gpu_mgr.release_request(rid)
@@ -976,10 +978,11 @@ class ServingEngine:
         # restore the garbage into attended positions (token corruption
         # whenever a preemption lands on a block-aligned context).  The
         # now-valid slot is picked up by the NEXT increment instead.
-        # ``last_slot_written``: a mid-prefill abort has NO pending decode
-        # token — every context_tokens position holds chunk-inserted KV,
-        # so the whole processed prefix is claimable.
-        total = req.context_tokens if last_slot_written \
+        # ``kv_tokens``: a mid-prefill abort has NO pending decode token —
+        # every context_tokens position holds chunk-inserted KV, so the
+        # whole processed prefix is claimable; a resume caught mid
+        # recomputation holds KV for its processed prefix only.
+        total = kv_tokens if kv_tokens is not None \
             else max(req.context_tokens - 1, 0)
         self.reuse.update_priority(rid, self.sched.priority(rid))
         # shared prefix-cache blocks are PINNED on GPU: they are never
@@ -1012,7 +1015,22 @@ class ServingEngine:
 
     def _swap_in(self, rid: int) -> bool:
         """Bring a swapped request's KV back to GPU.  Returns True if the
-        request is immediately RUNNING (sync), False if in flight."""
+        request is immediately RUNNING (sync), False if in flight or
+        still SWAPPED.  A CPU copy valid for fewer than the
+        ``context_tokens - 1`` positions that hold KV (``_swap_out``
+        claims as many) resumes through ``_resume_short_copy``: restoring
+        the whole context from it would leave stale KV past its valid
+        prefix."""
+        req = self._req(rid)
+        valid = self.reuse.restorable_tokens(rid)
+        if valid < req.context_tokens - 1:
+            return self._resume_short_copy(rid, valid)
+        return self._swap_in_copy(rid)
+
+    def _swap_in_copy(self, rid: int) -> bool:
+        """``_swap_in`` of a copy that holds every position with KV: the
+        whole context past the pinned shared prefix is restored, in
+        flight or synchronously."""
         req = self._req(rid)
         tokens = req.context_tokens
         # the shared prefix never left the GPU (pinned) — only the
@@ -1036,6 +1054,12 @@ class ServingEngine:
         # in-flight swap-out — synchronize before overwriting them
         self.swap.resolve_conflicts(self.clock, gpu_blocks)
         self.reuse.record_swap_in(rid)
+        # what the copy backs of the positions with KV, by the same
+        # restorable_tokens that _swap_in routed on, so always all of them
+        # here: invariant R3 reads it, and checks that routing (a path
+        # into RUNNING that skipped it), not the bytes the copy holds
+        backed = max(shared, min(tokens, self.reuse.restorable_tokens(rid)))
+        req.kv_gap = (backed, tokens - 1) if backed < tokens - 1 else None
         bs = self.config.block_size
         nblk = (tokens + bs - 1) // bs
         cpu_ids = self.reuse.mgr.request_block_ids(rid)[shared // bs:nblk] \
@@ -1059,6 +1083,51 @@ class ServingEngine:
             self.sched.move(rid, ReqState.SWAPPING_IN)
             return False
         self.sched.move(rid, ReqState.RUNNING)
+        return True
+
+    def _resume_short_copy(self, rid: int, valid: int) -> bool:
+        """Resume a SWAPPED request whose CPU copy is valid only for its
+        first ``valid`` < ``context_tokens - 1`` positions: another
+        request's swap-out contaminated the copy's tail, or its own
+        swap-out was cut short for want of CPU blocks.  The valid part
+        past the pinned shared prefix, ``[shared, valid)``, is restored
+        synchronously and ``[valid, context_tokens - 1)`` recomputed from
+        the token history (``_admit_resume``; no first token: the request
+        keeps its pending one).  With nothing valid past the pinned
+        prefix this is the plain recompute resume.  The request goes
+        straight to RUNNING (True), or stays SWAPPED (False) when its
+        blocks cannot be allocated or the restore failed (the copy is
+        then voided, so the next try recomputes)."""
+        req = self._req(rid)
+        req.resume_tokens = req.context_tokens
+        if self._admit_resume(rid, short_valid=valid):
+            return True
+        req.resume_tokens = 0
+        return False
+
+    def _restore_prefix(self, rid: int, shared: int, reused: int) -> bool:
+        """Restore ``[shared, reused)`` from the CPU copy, synchronously
+        (the prefill that follows reads it).  On a terminal copy failure
+        the copy is voided and the allocation rolled back — the caller
+        must not advertise a prefix it could not restore — and False is
+        returned; a FATAL failure raises to the containment wrapper,
+        which faults the request (DESIGN.md §7)."""
+        bs = self.config.block_size
+        runs_in = self._runs_for_tokens(rid, shared, reused)
+        cpu_ids = self.reuse.mgr.request_block_ids(rid)[
+            shared // bs:(reused + bs - 1) // bs] \
+            if self.pools is not None else []
+        self._dispatch_swap(rid, "in", runs_in, cpu_ids,
+                            asynchronous=False)
+        if self.swap.has_failed(rid, "in"):
+            tasks = self.swap.take_failed_for(rid)
+            self.gpu_mgr.release_request(rid)
+            self.reuse.invalidate(rid)
+            fatal = [t.failed for t in tasks
+                     if t.failed is not None and "Fatal" in t.failed]
+            if fatal:
+                raise FatalSwapFault(fatal[0])
+            return False
         return True
 
     def _recover_swap_in_failure(self, rid: int) -> None:
@@ -1101,8 +1170,14 @@ class ServingEngine:
         actually overlap, not the whole swap.  The data plane runs the
         staged run-coalesced path (``PagedPools.copy_*_staged``); a chunk
         whose CPU backing is shorter than its GPU runs (contamination
-        capped the reuse copy) trims the copy to the backed prefix, and
-        the sim cost still accounts the full dispatched runs.
+        capped the reuse copy) trims the copy to the backed prefix.  Of a
+        swap-in, only the block of the pending token, whose slot the next
+        decode step writes, reaches that trim: a copy valid to exactly
+        ``context_tokens - 1`` on a block boundary holds no CPU block for
+        it, and the sim cost still counts it (the dispatched runs).  A
+        copy valid for fewer positions is restored only up to its valid
+        prefix (``_swap_in`` -> ``_resume_short_copy``), and the sim cost
+        is that of the runs restored.
 
         Data ordering: a copy touching CPU blocks that a still-queued
         swap-out writes (its own request's increment, or a contamination
@@ -1192,13 +1267,27 @@ class ServingEngine:
         back to the full context (a resume restarts from scratch)."""
         req = self._req(rid)
         self.runner.prefill_abort(rid)
-        if req.prefill_is_resume:
+        if req.prefill_is_resume and \
+                self.config.policy.preemption_mode == "recompute":
             # recompute-mode branch of _swap_out: release + resume_tokens
             self._swap_out(rid, keep_copy=True)
             self.sched.move(rid, ReqState.WAITING)
             self._event(rid, "preempt", to="waiting", mid_prefill=True)
             return
-        self._swap_out(rid, keep_copy=True, last_slot_written=True)
+        if req.prefill_is_resume:
+            # swap mode: a resume (of a short copy, or after a failed
+            # swap-in) caught mid recomputation holds KV for its processed
+            # prefix, [0, context_tokens - 1 - prefill_remaining); it keeps
+            # its pending token, so it swaps that prefix out and goes back
+            # to SWAPPED, and its next swap-in resumes from the copy
+            done = req.context_tokens - 1 - req.prefill_remaining
+            req.prefill_remaining = 0
+            req.prefill_is_resume = False
+            self._swap_out(rid, keep_copy=True, kv_tokens=done)
+            self.sched.move(rid, ReqState.SWAPPED)
+            self._event(rid, "preempt", to="swapped", mid_prefill=True)
+            return
+        self._swap_out(rid, keep_copy=True, kv_tokens=req.context_tokens)
         req.prefill_remaining = 0
         req.resume_tokens = 0          # recompute mode: fresh _admit, not
         #                                a resume (no first token emitted)
@@ -1231,32 +1320,13 @@ class ServingEngine:
         gpu_runs = self.gpu_mgr.request_runs(rid)
         gpu_blocks = runs_to_indices(gpu_runs)
         self.swap.resolve_conflicts(self.clock, gpu_blocks)
-        # prefix-with-prefill: reused tokens are swapped in, the rest computed
-        if reused > shared:
-            bs = self.config.block_size
-            n_reused_blocks = (reused + bs - 1) // bs
-            runs_in = self._runs_for_tokens(rid, shared, reused)
-            cpu_ids = self.reuse.mgr.request_block_ids(rid)[
-                shared // bs:n_reused_blocks] \
-                if self.pools is not None else []
-            self._dispatch_swap(rid, "in", runs_in, cpu_ids,
-                                asynchronous=False)  # prefill needs it NOW
-            if self.swap.has_failed(rid, "in"):
-                # prefix restore failed terminally: degrade to a
-                # reused=0 full prefill (DESIGN.md §7).  Void the copy —
-                # this admission must not advertise a prefix it could
-                # not restore — roll back the allocation and stay
-                # WAITING; the next admission recomputes everything.
-                # A FATAL failure propagates to the containment wrapper
-                # and faults the request.
-                tasks = self.swap.take_failed_for(rid)
-                self.gpu_mgr.release_request(rid)
-                self.reuse.invalidate(rid)
-                fatal = [t.failed for t in tasks
-                         if t.failed is not None and "Fatal" in t.failed]
-                if fatal:
-                    raise FatalSwapFault(fatal[0])
-                return False
+        req.kv_gap = None
+        # prefix-with-prefill: reused tokens are swapped in, the rest
+        # computed.  A restore failed terminally degrades to a reused=0
+        # full prefill: the request stays WAITING with its copy voided
+        # and the next admission recomputes everything.
+        if reused > shared and not self._restore_prefix(rid, shared, reused):
+            return False
         # prefill compute for the non-reused tokens
         new_tokens = new_ctx - reused
         chunk = self.config.policy.chunked_prefill_tokens
@@ -1373,7 +1443,8 @@ class ServingEngine:
         self._credit(rid, first=True)
         self._event(rid, "first_token", ttft_us=req.ttfts_us[-1])
 
-    def _admit_resume(self, rid: int) -> bool:
+    def _admit_resume(self, rid: int,
+                      short_valid: Optional[int] = None) -> bool:
         """Re-admit a recompute-preempted request: re-prefill the full
         context (the recomputation cost the paper's swap mode avoids).
         With chunked prefill enabled the recomputation runs through the
@@ -1381,7 +1452,15 @@ class ServingEngine:
         engine iteration interleaved with decode steps — instead of one
         monolithic re-prefill iteration; the completion emits NO first
         token (``prefill_is_resume``): the request already holds its
-        pending token and resumes decoding."""
+        pending token and resumes decoding.
+
+        ``short_valid`` (``_resume_short_copy``): the request is SWAPPED
+        and its CPU copy is valid for its first ``short_valid`` positions
+        only.  Those past the pinned shared prefix are restored first
+        (``_restore_prefix``) and seed the recomputation, which then
+        computes — and the clock charges — only the positions past them
+        that hold KV (all but the pending token, or every position when
+        the first token is still to come)."""
         req = self._req(rid)
         ctx = req.resume_tokens
         shared = self._shared_tokens(rid)    # pinned prefix: still resident
@@ -1395,14 +1474,26 @@ class ServingEngine:
         self.swap.resolve_conflicts(
             self.clock, self.gpu_mgr.request_block_ids(rid))
         gpu_blocks = self._block_table(rid)
+        req.kv_gap = None
         # A sim-mode recompute preemption can land MID chunked prefill —
         # before the turn's first token existed (real mode can't reach
         # here: _abort_chunked_prefill reroutes those to a fresh admit).
         # Such a resume must still EMIT the first token on completion;
         # a resume of a decoding request (first_token_us set) must not.
         emitted = req.first_token_us is not None
+        # KV resident before the recomputation (the seed of its carry),
+        # and the tokens the recomputation charges
+        seeded, todo, short = shared, ctx, {}
+        if short_valid is not None:
+            if short_valid > shared:
+                if not self._restore_prefix(rid, shared, short_valid):
+                    return False
+                seeded = short_valid
+            todo = (ctx - 1 if emitted else ctx) - seeded
+            self.reuse.note_short_copy_resume(seeded - shared, todo)
+            short = {"short_copy": True, "valid_tokens": short_valid}
         chunk = self.config.policy.chunked_prefill_tokens
-        if chunk and ctx > chunk:
+        if chunk and todo > chunk:
             if self.pools is not None:
                 # the runner recomputes KV for all but the pending last
                 # token, chunk by chunk; ``context_tokens`` stays at the
@@ -1410,52 +1501,54 @@ class ServingEngine:
                 # the token positions fixed — only the KV is re-filling)
                 view = DecodeRequestView(rid, gpu_blocks, req.token_history,
                                          sampling=self._view_sampling(req))
-                if shared:
-                    # seed the carry from the pinned prefix: recomputing
-                    # it would scatter into shared blocks
+                if seeded:
+                    # seed the carry from the pinned prefix and the
+                    # restored one: recomputing the pinned prefix would
+                    # scatter into shared blocks
                     with self.swap._pool_lock:
                         req.prefill_remaining = self.runner.prefill_begin(
-                            view, emit_first=False, reused_tokens=shared,
+                            view, emit_first=False, reused_tokens=seeded,
                             pool=self.pools.gpu)
                 else:
                     req.prefill_remaining = self.runner.prefill_begin(
                         view, emit_first=False)
             else:
-                req.prefill_remaining = ctx
+                req.prefill_remaining = todo
             req.prefill_is_resume = emitted
             req.resume_tokens = 0
             self.metrics.prefills += 1
             self.sched.move(rid, ReqState.RUNNING)
-            self._event(rid, "resume", tokens=ctx, chunked=True)
+            self._event(rid, "resume", tokens=ctx, chunked=True, **short)
             return True
-        self.clock.advance(self.iter_cost.prefill_us(max(ctx, 1)))
+        self.clock.advance(self.iter_cost.prefill_us(max(todo, 1)))
         self.metrics.prefills += 1
         if self.pools is not None:
             # recompute: regenerate KV for the already-known history
-            self._real_reprefill(req)
+            self._real_reprefill(req, seeded)
         req.resume_tokens = 0
         self.sched.move(rid, ReqState.RUNNING)
-        self._event(rid, "resume", tokens=ctx, chunked=False)
+        self._event(rid, "resume", tokens=ctx, chunked=False, **short)
         if not emitted:
             self._emit_first_token(rid)
         return True
 
-    def _real_reprefill(self, req: Request) -> None:
+    def _real_reprefill(self, req: Request, seeded: int = 0) -> None:
         """Recompute-preemption resume: the runner regenerates KV for the
         already-known history (all but the last token — its K/V is written
         by the next decode step, which consumes hist[-1] as input) and
-        inserts it through its persistent block tables.  A pinned shared
-        prefix seeds the carry instead of being recomputed — recomputing
-        it would scatter into blocks other sharers are reading."""
+        inserts it through its persistent block tables.  The prefix
+        already resident, ``seeded`` tokens (a pinned shared prefix, or a
+        short copy's restored valid prefix), seeds the carry instead of
+        being recomputed — recomputing a pinned prefix would scatter into
+        blocks other sharers are reading."""
         rid = req.rid
         view = DecodeRequestView(rid, self._block_table(rid),
                                  req.token_history,
                                  sampling=self._view_sampling(req))
-        shared = self._shared_tokens(rid)
-        if shared:
+        if seeded:
             with self.swap._pool_lock:   # the carry seed reads the pool
                 total = self.runner.prefill_begin(
-                    view, emit_first=False, reused_tokens=shared,
+                    view, emit_first=False, reused_tokens=seeded,
                     pool=self.pools.gpu)
         else:
             total = self.runner.prefill_begin(view, emit_first=False)

@@ -62,3 +62,22 @@ def test_cross_check_at_smoke_size(tmp_path):
         assert row["argument_bytes_equal"] and row["argument_bytes"] > 0
         assert 0 < row["floor_ms"] <= row["step_ms"]
         assert row["max_memory_allocated"] is None
+
+
+def test_watch_exit_times_the_process_where_it_ends():
+    """``watch_exit`` notes a background process's end when it comes, not
+    when the caller next looks, and drains its output meanwhile."""
+    import subprocess
+    import time
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-c",
+         "import sys, time; sys.stdout.write('x' * 200000); "
+         "sys.stdout.flush(); time.sleep(0.5)"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    done = cs.watch_exit(proc, t0)
+    time.sleep(2.5)
+    done["thread"].join(timeout=30)
+    assert not done["thread"].is_alive() and proc.returncode == 0
+    assert len(done["stdout"]) == 200000 and done["stderr"] == ""
+    assert 0.5 <= done["seconds"] < 2.0

@@ -1,7 +1,8 @@
 """repro_torch's serving engine against the JAX reference (CPU).
 
   * sim mode is pure Python on both sides: metrics, TTFT/TBT lists and
-    the event log must be identical;
+    the event log must be identical (with the port's short-copy repair
+    taken out; with it, up to the first swap-in over a short CPU copy);
   * real mode (the storm of tests/test_serving_api.py): the modelled
     metrics must be identical (the simulated clock does not depend on
     token values), and the greedy token histories equal — or, where they
@@ -37,6 +38,8 @@ from repro_torch.models import transformer as T
 from torch_threads import one_torch_thread  # noqa: E402,F401
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+import chip_smoke  # noqa: E402
 
 # a greedy divergence between the packages is accepted only where the
 # reference's top-2 logits are this close: bf16 activations through two
@@ -51,22 +54,45 @@ NEAR_TIE = 2e-2
 
 
 def _sim_run(engine_cls, cfg_cls, trace_cls, convs, **cfg_kw):
-    cfg = cfg_cls(mode="sim", num_gpu_blocks=256, num_cpu_blocks=1024,
-                  max_running=8, **cfg_kw).with_policy("fastswitch")
+    """One package's sim replay of ``convs``.  Returns the engine, its
+    metrics, and what ``chip_smoke.watch_swap_ins`` saw, with per
+    ``_swap_in`` call the lengths of the engine's iteration records and
+    TTFT and TBT lists (``marks``)."""
+    cfg = cfg_kw.pop("cfg", None) or cfg_cls(
+        mode="sim", num_gpu_blocks=256, num_cpu_blocks=1024,
+        max_running=8, **cfg_kw).with_policy("fastswitch")
     eng = engine_cls(cfg, convs, trace=trace_cls("markov", 0.04, seed=7))
+    core = eng.core
+    seen = chip_smoke.watch_swap_ins(core)
+    seen["marks"] = []
+    swap_in = core._swap_in
+
+    def marked(rid):
+        m = core.metrics
+        seen["marks"].append((len(m.iter_records), len(m.ttfts_us),
+                              len(m.tbts_us)))
+        return swap_in(rid)
+    core._swap_in = marked
     m = eng.run(max_iterations=300_000)
     assert eng.done()
-    return eng, m
+    return eng, m, seen
 
 
 @pytest.mark.parametrize("policy_kw", [{}, {"swap_chunk_blocks": 4}])
-def test_sim_replay_identical(policy_kw):
+def test_sim_replay_identical(policy_kw, monkeypatch):
+    """With the short-copy repair taken out of the port's swap-in
+    (``_swap_in`` as ``_swap_in_copy``, which restores every copy whole,
+    as the reference's ``_swap_in``), both packages replay the storm
+    identically to the end.  The repaired path against the reference:
+    ``test_sim_replay_parts_only_at_a_short_copy``."""
+    monkeypatch.setattr(ServingEngine, "_swap_in",
+                        ServingEngine._swap_in_copy)
     jc = jax_sample_convs(24, seed=3)
     tc = sample_conversations(24, seed=3)
-    ja, jm = _sim_run(JaxFastSwitchEngine, JaxEngineConfig, JaxPriorityTrace,
-                      jc, **policy_kw)
-    ta, tm = _sim_run(FastSwitchEngine, EngineConfig, PriorityTrace, tc,
-                      **policy_kw)
+    ja, jm, _ = _sim_run(JaxFastSwitchEngine, JaxEngineConfig,
+                         JaxPriorityTrace, jc, **policy_kw)
+    ta, tm, _ = _sim_run(FastSwitchEngine, EngineConfig, PriorityTrace, tc,
+                         **policy_kw)
     js, ts = jm.summary(), tm.summary()
     js.pop("callstack_wall_s")
     ts.pop("callstack_wall_s")
@@ -75,6 +101,68 @@ def test_sim_replay_identical(policy_kw):
     assert tm.ttfts_us == jm.ttfts_us
     assert tm.tbts_us == jm.tbts_us
     assert ta.swap.stats() == ja.swap.stats()
+
+
+@pytest.mark.parametrize("policy_kw", [{}, {"swap_chunk_blocks": 4}])
+def test_sim_replay_parts_only_at_a_short_copy(policy_kw):
+    """Both packages replay the same storm identically up to the first
+    swap-in over a short CPU copy (one contaminated, or cut short for
+    want of CPU blocks: this storm meets such copies in both packages).
+    There the reference restores the whole context from the copy, stale
+    blocks past its valid prefix included, and the port restores the
+    valid prefix and recomputes the rest, so the runs part.  Before it:
+    the same iteration records (clock, batch, iteration time, prefills,
+    stall), the same swap-ins, the same TTFT and TBT lists.  To the end:
+    every turn done in both with the same tokens generated, preemption,
+    the port restoring no block past a valid prefix and resuming short
+    copies."""
+    jc = jax_sample_convs(24, seed=3)
+    tc = sample_conversations(24, seed=3)
+    ja, jm, jseen = _sim_run(JaxFastSwitchEngine, JaxEngineConfig,
+                             JaxPriorityTrace, jc, **policy_kw)
+    ta, tm, tseen = _sim_run(FastSwitchEngine, EngineConfig, PriorityTrace,
+                             tc, **policy_kw)
+    short = chip_smoke.short_swap_ins(jseen["swap_ins"])
+    assert short, "the storm no longer meets a short copy"
+    k = jseen["swap_ins"].index(short[0])
+    assert tseen["swap_ins"][:k + 1] == jseen["swap_ins"][:k + 1]
+    assert tseen["marks"][:k + 1] == jseen["marks"][:k + 1]
+    it, n_ttft, n_tbt = jseen["marks"][k]
+    assert it > 0 and tm.iter_records[:it] == jm.iter_records[:it]
+    assert tm.ttfts_us[:n_ttft] == jm.ttfts_us[:n_ttft]
+    assert tm.tbts_us[:n_tbt] == jm.tbts_us[:n_tbt]
+    js, ts = jm.summary(), tm.summary()
+    assert ts["total_tokens"] == js["total_tokens"]
+    assert tm.preemptions > 0
+    assert chip_smoke.past_valid_prefix(jseen["restores"])
+    assert chip_smoke.past_valid_prefix(tseen["restores"]) == []
+    assert ta.reuse.n_short_copy_resumes >= 1
+
+
+def test_sim_replay_identical_without_short_copies():
+    """The same storm over a host pool that no copy outgrows: no swap-in
+    meets a short copy, and the two packages' replays are identical to
+    the end (summary, TTFT / TBT lists, swap stats)."""
+    jcfg = JaxEngineConfig(mode="sim", num_gpu_blocks=256,
+                           num_cpu_blocks=4096,
+                           max_running=8).with_policy("fastswitch")
+    tcfg = EngineConfig(mode="sim", num_gpu_blocks=256, num_cpu_blocks=4096,
+                        max_running=8).with_policy("fastswitch")
+    ja, jm, jseen = _sim_run(JaxFastSwitchEngine, JaxEngineConfig,
+                             JaxPriorityTrace, jax_sample_convs(24, seed=3),
+                             cfg=jcfg)
+    ta, tm, tseen = _sim_run(FastSwitchEngine, EngineConfig, PriorityTrace,
+                             sample_conversations(24, seed=3), cfg=tcfg)
+    assert not chip_smoke.short_swap_ins(jseen["swap_ins"])
+    js, ts = jm.summary(), tm.summary()
+    js.pop("callstack_wall_s")
+    ts.pop("callstack_wall_s")
+    assert ts == js
+    assert tm.preemptions > 0
+    assert tm.ttfts_us == jm.ttfts_us
+    assert tm.tbts_us == jm.tbts_us
+    assert ta.swap.stats() == ja.swap.stats()
+    assert tseen == jseen
 
 
 def _online_sim(engine_cls, cfg_cls, trace_cls, sp_cls):

@@ -7,7 +7,9 @@ reference's ``repro.frontend`` (CPU).
     reference's own tests state);
   * ``DirectCluster`` on the 8-s storm and the 60-s bench: the
     reference's results dict and rows (counts exact, floats to 1e-12),
-    and ``BENCH_frontend.json``'s 536 turns, 98 migrations, 0 violations;
+    and ``BENCH_frontend.json``'s 536 turns, 98 migrations, 0 violations
+    (the bench with the port's short-copy repair taken out; with it, the
+    row that meets short copies keeps its counts);
   * real mode on the reduced model: the migration round trip is byte
     exact within the port, and the loopback server (sockets, fair queue,
     router, replica threads) streams the tokens a direct engine makes;
@@ -43,6 +45,9 @@ from repro_torch.frontend import admission, loadgen, router
 from repro_torch.models import transformer as T
 from test_torch_serve import swaps_follow_the_clock  # noqa: F401
 from torch_threads import one_torch_thread  # noqa: E402,F401
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+import chip_smoke  # noqa: E402
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 PACKAGES = {
@@ -308,7 +313,13 @@ def test_direct_cluster_storm_equals_the_reference():
         {f"client{i}" for i in range(4)}
 
 
-def test_bench_equals_the_reference_and_bench_frontend_json():
+def test_bench_equals_the_reference_and_bench_frontend_json(monkeypatch):
+    """The 60-s bench with the short-copy repair taken out of the port's
+    swap-in (``_swap_in`` as ``_swap_in_copy``, which restores every copy
+    whole, as the reference's ``_swap_in``).  The repaired bench:
+    ``test_bench_with_short_copy_resumes``."""
+    monkeypatch.setattr(ServingEngine, "_swap_in",
+                        ServingEngine._swap_in_copy)
     got = loadgen.run_bench(seed=0, duration_s=60.0)
     _close(got, jax_loadgen.run_bench(seed=0, duration_s=60.0))
     with open(os.path.join(os.path.dirname(__file__), "..",
@@ -320,6 +331,41 @@ def test_bench_equals_the_reference_and_bench_frontend_json():
     assert one["affinity_violations"] == two["affinity_violations"] == 0
     assert round(one["jain_attainment"], 5) == 0.99139
     assert round(two["jain_attainment"], 5) == 0.99938
+
+
+def test_bench_with_short_copy_resumes(monkeypatch):
+    """The port's 60-s bench as it runs.  The one-replica row swaps
+    requests back in over CPU copies shorter than their KV (swap-outs cut
+    short for want of CPU blocks), which the port resumes by restoring
+    the valid prefix and recomputing the rest
+    (``_resume_short_copy``), so that row's latencies part from
+    ``BENCH_frontend.json``'s, made by the reference, which restores
+    such copies whole.  No replica restores a block past a copy's valid
+    prefix; every row keeps the reference's turns, migrations and
+    violations; the two-replica row, which meets no short copy, equals
+    the reference's (counts exact, floats to 1e-12)."""
+    seen = []
+    run = loadgen.DirectCluster.run
+
+    def watched(self, work):
+        seen.append([chip_smoke.watch_swap_ins(e) for e in self.engines])
+        return run(self, work)
+    monkeypatch.setattr(loadgen.DirectCluster, "run", watched)
+    got = loadgen.run_bench(seed=0, duration_s=60.0)
+    with open(os.path.join(os.path.dirname(__file__), "..",
+                           "BENCH_frontend.json")) as f:
+        want = json.load(f)
+    short = [sum(len(chip_smoke.short_swap_ins(w["swap_ins"])) for w in row)
+             for row in seen]
+    assert short[0] > 0 and short[1] == 0, short
+    assert not [r for row in seen for w in row
+                for r in chip_smoke.past_valid_prefix(w["restores"])]
+    assert set(got) == set(want) and got["workload"] == want["workload"]
+    for g, w in zip(got["rows"], want["rows"]):
+        for key in ("replicas", "turns_finished", "migrations",
+                    "affinity_violations"):
+            assert g[key] == w[key], key
+    _close(got["rows"][1], want["rows"][1])
 
 
 # ---------------------------------------------------------------------------

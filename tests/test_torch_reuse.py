@@ -1,7 +1,9 @@
 """The port's KV Cache Reuse Mechanism (``repro_torch.core.reuse``,
 FastSwitch §3.3): the cases of ``tests/test_reuse.py``, the same
-swap-out sequences through both packages' managers, and the open
-contamination fault of ``ROADMAP.md`` queue 3 reproduced at its size.
+swap-out sequences through both packages' managers, and the
+contamination fault of both packages at the size that shows it: the
+port resumes a swap-in over a short copy by restoring its valid prefix
+and recomputing the rest, and serves the dense argmax tokens.
 
 Hypothesis is a dev-only dependency (requirements-dev.txt): when it is
 absent only the property tests skip — the example-based regressions in
@@ -26,8 +28,12 @@ except ImportError:               # stub the decorators: defs still parse,
     def settings(*a, **k):
         return lambda fn: fn
 
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+
+import chip_smoke  # noqa: E402
 from repro.core import reuse as jax_reuse  # noqa: E402
 from repro_torch.core.reuse import KVCacheReuseManager  # noqa: E402
+from torch_parity import assert_sim_equal  # noqa: E402
 from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
@@ -299,100 +305,118 @@ def test_same_swap_outs_same_copies_as_reference(ops, enabled):
 
 
 # ---------------------------------------------------------------------------
-# the open contamination fault (ROADMAP.md queue 3), both packages
+# contaminated copies at swap-in: the reference's fault, the port's repair
 # ---------------------------------------------------------------------------
 
 
-CONTAMINATION_SIZES = dict(gpu_blocks=160, cpu_blocks=256, max_running=8)
-
-
 def _engine_workload(engine_cls, cfg_cls, trace_cls, conv_cls, turn_cls,
-                     mode, bundle=None):
+                     mode, bundle=None, cpu_blocks=256):
     """chip_smoke.py's engine workload (8 two-turn conversations, prompts
     256-352 then 96-160 tokens, 32 generated a turn; 160 GPU blocks, a
-    random priority storm, seed 13) with 256 CPU blocks instead of 1024,
-    on one package.  Returns the engine and, per swap-in, (request,
-    context tokens, valid tokens of its CPU copy, CPU capacity in
-    tokens) as the engine saw them."""
+    random priority storm, seed 13) with ``cpu_blocks`` CPU blocks
+    instead of 1024, on one package.  Returns the engine, its
+    conversations and what ``chip_smoke.watch_swap_ins`` saw."""
     convs = [conv_cls(conv_id=i, arrival_s=0.0,
                       turns=[turn_cls((256, 288, 320, 352)[i % 4], 32),
                              turn_cls((96, 128, 160)[i % 3], 32)],
                       think_time_s=0.05) for i in range(8)]
-    cfg = cfg_cls(mode=mode,
-                  num_gpu_blocks=CONTAMINATION_SIZES["gpu_blocks"],
-                  num_cpu_blocks=CONTAMINATION_SIZES["cpu_blocks"],
+    cfg = cfg_cls(mode=mode, num_gpu_blocks=160, num_cpu_blocks=cpu_blocks,
                   max_running=8, max_batch=8, block_size=16,
                   seed=0).with_policy("fastswitch")
     eng = engine_cls(cfg, convs, trace=trace_cls("random", 0.5, seed=13),
                      model_bundle=bundle)
-    swap_ins = []
-    core = eng.core
-    real = core._swap_in
-
-    def swap_in(rid):
-        req = core._req(rid)
-        swap_ins.append((rid, req.context_tokens,
-                         core.reuse.valid_tokens(rid),
-                         core.reuse.mgr.request_tokens(rid)))
-        return real(rid)
-    core._swap_in = swap_in
+    seen = chip_smoke.watch_swap_ins(eng.core)
     eng.run(max_iterations=100_000)
     assert eng.done()
-    return eng, convs, swap_ins
+    return eng, convs, seen
 
 
-@pytest.mark.xfail(strict=True, raises=AssertionError, reason=(
-    "ROADMAP.md queue 3, KV reuse contamination: a SWAPPED request whose "
-    "CPU copy is contaminated is swapped back in over its whole context, "
-    "the copy trimmed to the prefix it still backs, so the positions past "
-    "it keep stale KV; both packages"))
-def test_contaminated_swap_in_serves_dense_argmax_tokens():
-    """The fault at the size ``ROADMAP.md`` queue 3 names.  Both
-    packages' sim runs of the workload make the same decisions, swap-ins
-    past the valid prefix of their request's CPU copy included; the
-    port's real-mode run on the reduced model with the reference's
-    weights must then serve each generated token as the dense forward's
-    argmax or within 0.05 of it.
-
-    It does not.  Its run makes 15 contaminations, and five swap-ins
-    restore a context past the valid prefix their copy kept: request 4
-    first, 426 tokens over 281 valid (request 7 contaminated its copy
-    while it was SWAPPED), then 1 (453 over 319), 7 (521 over 376) and 3
-    (493 over 383, then 494 over 0).  The first wrong tokens are
-    conversation 4 at position 426, 1 at 453, 3 at 494 and 7 at 531.  The
-    reference's real-mode run of this workload is too slow for the suite
-    on the CPU, so the reference runs here in sim mode only."""
-    import jax
-    import numpy as np
-    import torch
-
-    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-    import chip_smoke
-    from repro.configs import get_smoke_config as jax_smoke_config
+def _packages():
     from repro.core import EngineConfig as JaxEngineConfig
     from repro.core import FastSwitchEngine as JaxFastSwitchEngine
     from repro.data.priority import PriorityTrace as JaxPriorityTrace
     from repro.data.sharegpt import Conversation as JaxConversation
     from repro.data.sharegpt import Turn as JaxTurn
-    from repro.models import transformer as jax_T
-    from repro_torch.configs import get_smoke_config
     from repro_torch.core import EngineConfig, FastSwitchEngine
     from repro_torch.data.priority import PriorityTrace
     from repro_torch.data.sharegpt import Conversation, Turn
-    from repro_torch.models import transformer as T
+    return ((JaxFastSwitchEngine, JaxEngineConfig, JaxPriorityTrace,
+             JaxConversation, JaxTurn),
+            (FastSwitchEngine, EngineConfig, PriorityTrace, Conversation,
+             Turn))
 
-    ref, _, ref_ins = _engine_workload(
-        JaxFastSwitchEngine, JaxEngineConfig, JaxPriorityTrace,
-        JaxConversation, JaxTurn, "sim")
-    sim, _, sim_ins = _engine_workload(
-        FastSwitchEngine, EngineConfig, PriorityTrace, Conversation, Turn,
-        "sim")
-    # the control plane at this size: the same contaminations and swap-ins
-    # in both packages, some swap-ins past the valid prefix of their copy
-    assert sim_ins == ref_ins
-    assert sim.reuse.n_contaminations == ref.reuse.n_contaminations
+
+def _reference_restores_past_valid(cpu_blocks):
+    """The reference's sim run of the workload: it swaps requests back in
+    over copies shorter than their context and restores blocks past the
+    valid prefix (its fault, documented).  Returns its engine."""
+    ref, _, seen = _engine_workload(*_packages()[0], "sim",
+                                    cpu_blocks=cpu_blocks)
+    assert chip_smoke.past_valid_prefix(seen["restores"]), \
+        "the reference no longer restores past a copy's valid prefix"
+    ref.swap.shutdown()
+    return ref
+
+
+@pytest.mark.parametrize("cpu_blocks", [256, 192])
+def test_contaminated_swap_in_sim_resumes_the_short_copy(cpu_blocks):
+    """Sim mode, both packages: the reference restores blocks past a
+    copy's valid prefix; the port meets the same short copies, restores
+    nothing past their valid prefix and resumes each of them."""
+    _reference_restores_past_valid(cpu_blocks)
+    sim, _, seen = _engine_workload(*_packages()[1], "sim",
+                                    cpu_blocks=cpu_blocks)
+    short = chip_smoke.short_swap_ins(seen["swap_ins"])
+    print(f"{cpu_blocks} CPU blocks: contaminations "
+          f"{sim.reuse.n_contaminations}, swap-ins {len(seen['swap_ins'])}, "
+          f"short copies (request, context, valid) {short}, "
+          f"{sim.reuse.stats()}")
+    assert chip_smoke.past_valid_prefix(seen["restores"]) == []
+    assert short and sim.reuse.n_short_copy_resumes >= 1
+    assert sim.reuse.n_short_copy_resumes <= len(short)
+    sim.swap.shutdown()
+
+
+@pytest.mark.parametrize("cpu_blocks", [384, 1024])
+def test_sim_equal_to_the_reference_without_short_copies(cpu_blocks):
+    """Where no swap-in meets a short copy the port's sim run is the
+    reference's: summary, TTFT / TBT lists, swap stats, event log."""
+    ref, _, ref_seen = _engine_workload(*_packages()[0], "sim",
+                                        cpu_blocks=cpu_blocks)
+    sim, _, seen = _engine_workload(*_packages()[1], "sim",
+                                    cpu_blocks=cpu_blocks)
+    assert chip_smoke.short_swap_ins(ref_seen["swap_ins"]) == []
+    assert seen == ref_seen
+    assert_sim_equal(sim, ref)
+    assert sim.reuse.n_short_copy_resumes == 0
     sim.swap.shutdown()
     ref.swap.shutdown()
+
+
+def test_contaminated_swap_in_serves_dense_argmax_tokens():
+    """The fault at the size ``ROADMAP.md`` queue 3 named, 256 CPU
+    blocks.  The reference's sim run still swaps requests back in past
+    their copy's valid prefix (request 4 first, 426 tokens over 281
+    valid).  The port's sim and real runs (the reduced model with the
+    reference's weights) restore no block past a valid prefix, resume at
+    least one short copy, and the real run serves every generated token
+    as the dense forward's argmax or within 0.05 of it.  The reference's
+    real-mode run of this workload is too slow for the suite on the CPU,
+    so the reference runs here in sim mode only."""
+    import jax
+    import numpy as np
+    import torch
+
+    from repro.configs import get_smoke_config as jax_smoke_config
+    from repro.models import transformer as jax_T
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as T
+
+    ref = _reference_restores_past_valid(256)
+    sim, _, sim_seen = _engine_workload(*_packages()[1], "sim")
+    assert chip_smoke.past_valid_prefix(sim_seen["restores"]) == []
+    assert sim.reuse.n_short_copy_resumes >= 1
+    sim.swap.shutdown()
     cfg = get_smoke_config("qwen2-1.5b")
     params = T.params_from_numpy(
         jax.tree.map(np.asarray,
@@ -400,9 +424,8 @@ def test_contaminated_swap_in_serves_dense_argmax_tokens():
                                        jax.random.PRNGKey(0))),
         device="cpu")
     with chip_smoke.swaps_follow_the_clock():
-        eng, convs, ins = _engine_workload(
-            FastSwitchEngine, EngineConfig, PriorityTrace, Conversation,
-            Turn, "real", {"cfg": cfg, "params": params})
+        eng, convs, seen = _engine_workload(
+            *_packages()[1], "real", {"cfg": cfg, "params": params})
     first_wrong = {}
     with torch.no_grad():
         for c in convs:
@@ -417,12 +440,15 @@ def test_contaminated_swap_in_serves_dense_argmax_tokens():
                         first_wrong.setdefault(c.conv_id, i)
                 pos += t.response_tokens
     eng.swap.shutdown()
-    print("contaminations, sim (both packages):", sim.reuse.n_contaminations,
+    print("contaminations, reference sim:", ref.reuse.n_contaminations,
+          "port sim:", sim.reuse.n_contaminations,
           "real:", eng.reuse.n_contaminations)
-    print("swap-ins past the valid prefix (request, context, valid, CPU "
-          "capacity), sim:", [x for x in sim_ins if x[2] < x[1] - 1],
-          "real:", [x for x in ins if x[2] < x[1] - 1])
+    print("short copies met (request, context, valid), real:",
+          chip_smoke.short_swap_ins(seen["swap_ins"]),
+          "resumed:", eng.reuse.stats())
     print("first wrong (conversation, position):",
           sorted(first_wrong.items()))
+    assert chip_smoke.past_valid_prefix(seen["restores"]) == []
+    assert eng.reuse.n_short_copy_resumes >= 1
     assert not first_wrong, \
         f"tokens below the dense maximum from {sorted(first_wrong.items())}"
