@@ -144,6 +144,34 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                and those over a short copy, the restored and recomputed
                tokens, the wall.  The engine phase's 1024-block pool must
                resume none.
+  5p. ladder — right after 5n, in a process of its own
+               (``scripts/ladder_probe.py``): the paper's four-policy
+               ladder (vllm, +dbg, +dbg+reuse, fastswitch) with
+               mistral-nemo-12b at full width (40 layers, d_model 5120,
+               32 / 8 heads of 128, d_ff 14336, vocab 131072; random bf16
+               serving weights from seed 0, one init) on the engine
+               phase's workload and pool (2.5 MiB blocks: 400 MiB of
+               device pool, 2.5 GiB of pinned host pool), each policy a
+               fresh engine on the one bundle, swap tasks held to the
+               simulated clock: a watched run whose every staged swap
+               is held byte for byte (``watch_moved_kv``; the first also
+               pays the process's one-time costs), then the timed run,
+               whose tokens must equal the watched run's.  Each run
+               finishes every turn, swaps both ways, retries and fails no
+               copy, leaks no block or runner row (``check_reclaimed``)
+               and launches paged attention, gather and scatter.  Every
+               greedy token is the argmax of the dense forward in fp32
+               of the bf16 weights (``full_precision``) or within
+               max(NEAR_TIE, the largest logit distance of the bf16 and
+               fp32 dense forwards, the spread measured in the same
+               run), at least ``LADDER_NEAR_TIE_SHARE`` (97.5 %) of each
+               policy's tokens are within NEAR_TIE, and every two
+               policies' streams are equal or first part within the
+               tolerance.  Per policy: wall, host
+               seconds by method, swap
+               operations and blocks each way, ``fenced_swap_ins``,
+               launches; the device's idle share of one more, profiled,
+               fastswitch run.
   5g. moe    — olmoe-1b-7b at full width (16 layers, d_model 2048, 16 / 16
                heads of 128, 64 experts top-8, random weights from a seed,
                bf16 serving copy only) through the engine phase's workload:
@@ -193,14 +221,15 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                qwen2-1.5b --steps 5 --batch 8 --seq 128``, as a subprocess.
                In a process of its own, ``scripts/train_probe.py``.
   5i. ssm    — the SSM and hybrid families, in a process of its own
-               (``scripts/ssm_probe.py``).  zamba2-7b at full width (81
-               layers: 13 periods of 5 Mamba2 layers and one shared
-               attention block, 3 remainder Mamba2 layers; d_model 3584,
-               112 SSD heads, N = P = chunk = 64; 5.7 B parameters,
-               random weights from a seed, bf16 serving copy only): a
-               prefill of 8 prompts of 256 through ``steps.prefill``,
-               the SSD scan kernel's launch count set to 0 just before
-               and read just after (68: once per Mamba2 layer); the same
+               (``scripts/ssm_probe.py``).  zamba2-7b at full width cut
+               in depth (``SSM_DEPTH``: 9 of its 81 layers, one period
+               of 5 Mamba2 layers and the shared attention block, then
+               its 3 remainder Mamba2 layers; d_model 3584, 112 SSD
+               heads, N = P = chunk = 64; random weights from a seed,
+               bf16 serving copy only): a prefill of 8 prompts of 256
+               through ``steps.prefill``, the SSD scan kernel's launch
+               count set to 0 just before and read just after (8: once
+               per Mamba2 layer); the same
                prefill with the kernel's plain version (last logits
                within twice the distance of two plain prefills whose scans
                differ in summation order, ``SSM_SPREAD_FACTOR``; the first
@@ -214,21 +243,24 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                peak memory.  Its train step cut to one period (6 layers)
                at full width, B 2 x T 64, against the CPU (loss and every
                gradient leaf within stated bounds; no scan launched: no
-               kernel has a backward).  rwkv6-1.6b at full width through
-               ``train_phase`` (8 steps with remat on over one batch of B
+               kernel has a backward).  rwkv6-1.6b at full width cut to 4
+               of its 24 layers through ``train_phase`` (8 steps with
+               remat on over one batch of B
                8 x T 128, remat on against off, the card against the CPU
                at 2 layers, greedy decode of 8 prompts of 256 over 32
                steps, step ms, tokens/s, FLOP share, peak memory, then
                ``launch.train --arch rwkv6-1.6b --steps 5 --batch 8 --seq
-               128``).  Then the launchers' refusals of zamba2-7b:
+               128``, the whole model).  Then the launchers' refusals of
+               zamba2-7b:
                ``launch.train --device cuda`` (its 92 GB fp32 training
                state exceeds the card) and ``launch.serve --real`` (no
                paged path, the reference's message), both non-zero.
   5j. families — the last three families, in a process of its own
                (``scripts/families_probe.py``); no kernel is on their
                path (plain torch attention, as the reference's XLA).
-               gemma3-12b whole (48 layers, 5 local : 1 global, window
-               1024, 12.8 B parameters) from a bf16 serving init: prefills
+               gemma3-12b at full width cut to 6 of its 48 layers (one
+               period of 5 local : 1 global, window 1024;
+               ``FAMILIES_DEPTH``) from a bf16 serving init: prefills
                of 4 x 1500 and 1 x 5000 tokens (``_sdpa_chunked``), 32
                greedy decode steps each past the local rings' wrap, the
                rings' slots against the sequence K (``ring_check``), every
@@ -242,10 +274,12 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                sequence forward (``MLA_LAYER_RTOL``); each token counted
                as equal, a logit or a routing near-tie, or a prefill
                capacity drop, against a dropless dense forward; its smoke
-               config's gradients against the CPU's.  whisper-large-v3
-               whole through ``train_phase`` (B 8 x T 128 with encoder
-               frames, 2 + 2 layers against the CPU, a decode of 8 x 64,
-               its launcher).  The launchers' refusals: ``launch.train
+               config's gradients against the CPU's.  whisper-large-v3 at
+               full width cut to 4 + 4 of its 32 + 32 layers through
+               ``train_phase`` (B 8 x T 128 with encoder frames, 2 + 2
+               layers against the CPU, a decode of 8 x 64, its launcher
+               on the whole model).  The launchers' refusals:
+               ``launch.train
                --device cuda`` of gemma3-12b and deepseek-v2-236b,
                ``launch.serve --real`` of all three.
   5k. mesh   — tensor-parallel serving, in a process of its own
@@ -303,6 +337,11 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                ``torch_dev_engine.py 20`` (sim mode, four policies, the
                same tokens each) and ``torch_dev_smoke.py`` (the ten smoke
                archs' forward, train step, prefill and 3 decode steps).
+  5q. fairness_example — ``examples/torch_fairness_comparison.py`` (the
+               ladder in sim mode on the paper's LLaMA-8B/A10 scenario, CPU
+               only), started in the background at a lower priority after
+               phase 2 and read after 5o: exit 0, and one well-formed line
+               per policy of the ladder, in order.
   6. device_times — the device time of each phase-3 kernel and library
                call alone: their CUDA kernels under ``torch.profiler``, the
                wrapper's host time left out.  After the engine phases,
@@ -1363,9 +1402,9 @@ def _count_swaps(swap):
 
 def run_engine(bundle, convs, *, gpu_blocks: int, cpu_blocks: int,
                max_running: int, seed: int = 13, mesh=(1, 1),
-               on_engine=None):
+               on_engine=None, policy: str = "fastswitch"):
     """Serve ``convs`` through the replay client of ``ServingEngine`` in
-    real mode (fastswitch policy, a random priority storm) on ``mesh``
+    real mode (``policy``, a random priority storm) on ``mesh``
     (the bundle's ``mesh_devices`` name its devices); ``on_engine`` is
     called with the engine before it runs.  Returns (engine, wall
     seconds, host seconds by method, data-moving swaps by (request id,
@@ -1377,7 +1416,7 @@ def run_engine(bundle, convs, *, gpu_blocks: int, cpu_blocks: int,
                        num_cpu_blocks=cpu_blocks, max_running=max_running,
                        max_batch=max_running, block_size=16,
                        seed=SEED, mesh_shape=tuple(mesh)
-                       ).with_policy("fastswitch")
+                       ).with_policy(policy)
     eng = FastSwitchEngine(cfg, convs, trace=PriorityTrace("random", 0.5,
                                                            seed=seed),
                            model_bundle=bundle)
@@ -1596,42 +1635,48 @@ def check_tokens(eng, bundle, conv, tol: float = NEAR_TIE) -> dict:
     dense forward once; every token the engine generated must be the
     dense argmax at its position, or within ``tol`` of the dense maximum
     (a near-tie)."""
-    import torch
-    from repro_torch.models import transformer as T
     hist = eng._token_hist_by_conv[conv.conv_id]
-    generated = []
-    pos = 0
-    for turn in conv.turns:
-        pos += turn.prompt_tokens
-        generated.extend(range(pos, pos + turn.response_tokens))
-        pos += turn.response_tokens
-    if len(hist) != pos:
+    generated = generated_positions(conv)
+    n = sum(t.prompt_tokens + t.response_tokens for t in conv.turns)
+    if len(hist) != n:
         raise AssertionError(f"history holds {len(hist)} tokens, the turns "
-                             f"{pos}")
+                             f"{n}")
     return {"conv": conv.conv_id,
             **check_history(bundle, hist, generated, tol)}
 
 
-def check_history(bundle, hist, generated, tol: float = NEAR_TIE,
-                  frames=None) -> dict:
-    """Teacher-force ``hist`` through the plain dense forward once (an
-    encoder-decoder against its ``frames`` (1, S_enc, d)); the token at
-    each position in ``generated`` must be the dense argmax there, or
-    within ``tol`` of the dense maximum (a near-tie)."""
+def generated_positions(conv) -> list:
+    """The history positions of ``conv``'s response tokens."""
+    out, pos = [], 0
+    for turn in conv.turns:
+        pos += turn.prompt_tokens
+        out.extend(range(pos, pos + turn.response_tokens))
+        pos += turn.response_tokens
+    return out
+
+
+def dense_logits(bundle, hist, positions, frames=None):
+    """The plain dense forward of ``hist`` (an encoder-decoder against its
+    ``frames`` (1, S_enc, d)), its fp32 logits predicting each of
+    ``positions`` (the rows at ``positions - 1``): (n, V)."""
     import torch
     from repro_torch.models import transformer as T
-    if not generated:
-        return {"generated": 0, "equal": 0, "near_ties": 0, "max_gap": 0.0,
-                "tolerance": tol}
     device = bundle["params"]["embed"]["table"].device
-    toks = torch.tensor([hist], dtype=torch.long, device=device)
+    toks = torch.tensor([list(hist)], dtype=torch.long, device=device)
     with torch.no_grad():
         logits, _, _ = T.forward_seq(bundle["params"], bundle["cfg"], toks,
                                      encoder_frames=frames)
-    lg = logits[0, [i - 1 for i in generated]]            # predicts i
-    want = torch.tensor([hist[i] for i in generated], device=device)
-    top = lg.max(dim=-1).values
-    gap = top - lg.gather(1, want[:, None])[:, 0]
+    return logits[0, [i - 1 for i in positions]].float()
+
+
+def token_gaps(rows, hist, generated, tol: float = NEAR_TIE) -> dict:
+    """The token of ``hist`` at each position in ``generated`` against
+    ``rows`` (``dense_logits`` there): it must be the argmax of its row,
+    or within ``tol`` of the row's maximum (a near-tie).  Counts the
+    tokens equal to the argmax and those within ``NEAR_TIE``."""
+    import torch
+    want = torch.tensor([hist[i] for i in generated], device=rows.device)
+    gap = rows.max(dim=-1).values - rows.gather(1, want[:, None])[:, 0]
     equal = int((gap == 0).sum())
     worst = float(gap.max())
     if worst >= tol:
@@ -1639,8 +1684,22 @@ def check_history(bundle, hist, generated, tol: float = NEAR_TIE,
         raise AssertionError(f"token {generated[i]}: the engine's token is "
                              f"{worst} below the dense maximum (>= {tol})")
     return {"generated": len(generated), "equal": equal,
-            "near_ties": len(generated) - equal, "max_gap": worst,
-            "tolerance": tol}
+            "near_ties": len(generated) - equal,
+            "within_near_tie": int((gap < NEAR_TIE).sum()),
+            "max_gap": worst, "tolerance": tol}
+
+
+def check_history(bundle, hist, generated, tol: float = NEAR_TIE,
+                  frames=None) -> dict:
+    """Teacher-force ``hist`` through the plain dense forward once (an
+    encoder-decoder against its ``frames`` (1, S_enc, d)); the token at
+    each position in ``generated`` must be the dense argmax there, or
+    within ``tol`` of the dense maximum (``token_gaps``)."""
+    if not generated:
+        return {"generated": 0, "equal": 0, "near_ties": 0,
+                "within_near_tie": 0, "max_gap": 0.0, "tolerance": tol}
+    return token_gaps(dense_logits(bundle, hist, generated, frames), hist,
+                      generated, tol)
 
 
 def exact_shape_history(bundle, conv, want, block_size: int = 16,
@@ -2950,6 +3009,310 @@ def reuse_phase(bundle, convs, sizes: dict,
 
 
 # ---------------------------------------------------------------------------
+# phase 5p: the paper's four-policy ladder (mistral-nemo-12b)
+# ---------------------------------------------------------------------------
+
+LADDER_ARCH = "mistral-nemo-12b"
+# host seconds by method reported per policy (``run_engine``'s timers)
+LADDER_METHODS = ("prefill_chunk_compute", "decode", "flush",
+                  "copy_out_staged", "copy_in_staged")
+
+
+def watch_moved_kv(pools) -> dict:
+    """Hold every staged swap of ``pools`` byte for byte: once a
+    ``copy_out_staged`` returns, the host blocks it wrote equal the device
+    blocks it read; once a ``copy_in_staged`` returns, the device blocks
+    it wrote equal the host blocks it read.  (A swap-out's source blocks
+    stay unwritten until its task completes: an allocation that takes
+    one first waits for the task, ``resolve_conflicts``.)  Each check
+    reads the device blocks back, so a run watched so is not timed.
+    Returns the blocks checked each way, filled as the engine runs;
+    raises ``AssertionError`` at a difference."""
+    import torch
+    from repro_torch.kernels.block_copy import runs_to_indices
+    seen = {"out_blocks": 0, "in_blocks": 0}
+    real_out, real_in = pools.copy_out_staged, pools.copy_in_staged
+    s = pools.spec
+    planes = s.n_layers * 2
+    host = torch.from_numpy(pools.cpu.view("int16")).view(
+        planes, s.num_cpu_blocks, -1)
+
+    def held(direction, runs, cpu_ids):
+        idx = runs_to_indices(runs)
+        gpu = pools.gpu_full()
+        dev = gpu.view(torch.int16).view(planes, gpu.shape[2], -1)
+        dev = dev.index_select(1, torch.as_tensor(idx, device=gpu.device))
+        back = torch.empty(dev.shape, dtype=dev.dtype,
+                           pin_memory=dev.is_cuda)
+        back.copy_(dev)
+        want = host.index_select(1, torch.as_tensor(list(cpu_ids)))
+        if not torch.equal(back, want):
+            raise AssertionError(f"swap-{direction} of device blocks {idx} "
+                                 f"and host blocks {list(cpu_ids)}: the "
+                                 "bytes differ")
+        seen[f"{direction}_blocks"] += len(idx)
+
+    def copy_out(runs, cpu_ids, **k):
+        real_out(runs, cpu_ids, **k)
+        held("out", runs, cpu_ids)
+
+    def copy_in(cpu_ids, runs, *a, **k):
+        real_in(cpu_ids, runs, *a, **k)
+        held("in", runs, cpu_ids)
+    pools.copy_out_staged, pools.copy_in_staged = copy_out, copy_in
+    return seen
+
+
+@contextlib.contextmanager
+def full_precision():
+    """Within the block the model computes in fp32 (``layers.
+    COMPUTE_DTYPE``): the activations are fp32 and each bf16 weight is
+    upcast, exactly, where a layer casts it at use, so a dense forward
+    gives the model's function of its bf16 weights with no bf16 rounding
+    of its own (with TF32 off)."""
+    import torch
+    from repro_torch.models import layers as L
+    real = L.COMPUTE_DTYPE
+    L.COMPUTE_DTYPE = torch.float32
+    try:
+        yield
+    finally:
+        L.COMPUTE_DTYPE = real
+
+
+def ladder_run(bundle, convs, sizes: dict, policy: str,
+               watch: bool = False) -> tuple:
+    """One engine run of ``policy`` on ``bundle`` with swap tasks held to
+    the simulated clock (so a policy's runs repeat), the serving kernels'
+    launch counts set to 0 just before; with ``watch``, every swap held
+    byte for byte (``watch_moved_kv``).  The run must finish every turn,
+    swap both ways, retry and fail no copy, leak nothing and, on CUDA,
+    launch every serving kernel.  Returns (engine, its record)."""
+    from repro_torch.kernels import block_copy as bc
+    from repro_torch.kernels import launches
+    from repro_torch.kernels import paged_attention as pa
+    kernels = {"paged_attention": pa.paged_attention,
+               "block_gather_runs": bc.block_gather_runs,
+               "block_scatter_runs": bc.block_scatter_runs}
+    moved = {}
+    launches.reset(*kernels.values())
+    t0 = time.perf_counter()
+    with swaps_follow_the_clock() as hold:
+        eng, wall, host, swaps = run_engine(
+            bundle, convs, policy=policy, **sizes,
+            on_engine=(lambda e: moved.update(
+                blocks=watch_moved_kv(e.pools))) if watch else None)
+    setup_s = time.perf_counter() - t0 - wall
+    launched = {k: w.launches for k, w in kernels.items()}
+    checked = check_engine(eng, convs, swaps, every_conv_swapped=False)
+    moved = moved.get("blocks")
+    if watch and not (moved["out_blocks"] and moved["in_blocks"]):
+        raise AssertionError(f"{policy}: no block checked one way: {moved}")
+    check_reclaimed(eng)
+    if bundle["params"]["embed"]["table"].is_cuda and \
+            min(launched.values()) <= 0:
+        raise AssertionError(f"{policy}: a serving kernel never launched: "
+                             f"{launched}")
+    sw = eng.swap.stats()
+    return eng, {
+        "wall_s": wall, "setup_s": setup_s,
+        "tokens_per_s": checked["tokens"] / wall,
+        "host_s_by_method": {k: host.get(k, 0.0) for k in LADDER_METHODS},
+        "clock_hold_wait_s": hold["wait_s"],
+        "swap_ops": {"out": sw["ops_out"], "in": sw["ops_in"]},
+        "blocks_moved": {"out": sw["blocks_out"], "in": sw["blocks_in"]},
+        "swap_gb": {"out": sw["blocks_out"] * eng.block_bytes / 1e9,
+                    "in": sw["blocks_in"] * eng.block_bytes / 1e9},
+        "launches": launched, "moved_kv_blocks_checked": moved,
+        **{k: checked[k] for k in (
+            "preemptions", "swap_out_calls", "swap_in_calls",
+            "fenced_swap_ins", "d2h_transfers", "h2d_transfers",
+            "decode_steps", "prefill_chunks", "graphs_captured",
+            "copy_retries", "copy_failures")},
+        "a10_modelled_p99_ttft_ms": eng.metrics.summary()["p99_ttft_ms"]}
+
+
+# mistral-nemo-12b at random bf16 weights: its bf16 rounding moves a
+# logit by more than NEAR_TIE, so a few greedy tokens part from the dense
+# argmax by more than NEAR_TIE.  The reference is the dense forward in
+# fp32 of the same bf16 weights (``full_precision``).  A token is accepted
+# within the spread, the largest distance of the bf16 and fp32 dense
+# forwards' logits at the generated positions measured in the same run
+# (how far a plain bf16 forward of this model moves a logit), and never
+# less than NEAR_TIE; and at least LADDER_NEAR_TIE_SHARE of each policy's
+# tokens must lie within NEAR_TIE, so that a fault moving many tokens a
+# little fails too.  (Two plain forwards differing only in the attention
+# route, gemma3's spread, agree exactly at this model's lengths.)
+LADDER_NEAR_TIE_SHARE = 0.975
+
+
+def ladder_tokens(bundle, convs, hists: dict) -> dict:
+    """Every policy's greedy tokens (``hists``: {policy: {conv: history}})
+    against the dense forward in fp32 of the bf16 weights and, beside it,
+    the bf16 one (``token_gaps``; one pair of forwards per distinct
+    history), and every two policies' first parting by the fp32 forward.
+    Returns per policy the tokens equal to the fp32 argmax, within
+    NEAR_TIE, the largest gap, and the bf16 forward's equal tokens and
+    largest gap; the partings per pair, as (position, |gap| of the two
+    tokens); the spread (the largest |fp32 - bf16| logit distance over
+    every history) and the tolerance, max(NEAR_TIE, spread).  Gates
+    nothing."""
+    rows, spread = {}, 0.0
+    for hist in hists.values():
+        for c in convs:
+            h = tuple(hist[c.conv_id])
+            if h in rows:
+                continue
+            pos = generated_positions(c)
+            if len(h) != pos[-1] + 1:
+                raise AssertionError(f"conv {c.conv_id}: history of "
+                                     f"{len(h)} tokens")
+            bf16 = dense_logits(bundle, h, pos)
+            with full_precision():
+                fp32 = dense_logits(bundle, h, pos)
+            spread = max(spread, float((fp32 - bf16).abs().max()))
+            rows[h] = (pos, fp32, bf16)
+    per = {}
+    for pol, hist in hists.items():
+        f, b = [], []
+        for c in convs:
+            h = hist[c.conv_id]
+            pos, fp32, bf16 = rows[tuple(h)]
+            f.append(token_gaps(fp32, h, pos, math.inf))
+            b.append(token_gaps(bf16, h, pos, math.inf))
+        per[pol] = {"greedy_generated": sum(r["generated"] for r in f),
+                    "greedy_equal": sum(r["equal"] for r in f),
+                    "greedy_within_near_tie": sum(r["within_near_tie"]
+                                                  for r in f),
+                    "greedy_max_gap": max(r["max_gap"] for r in f),
+                    "bf16_dense_equal": sum(r["equal"] for r in b),
+                    "bf16_dense_max_gap": max(r["max_gap"] for r in b)}
+    pairs, names = {}, list(hists)
+    for i, a in enumerate(names):
+        for b in names[i + 1:]:
+            parts = []
+            for c in convs:
+                ha, hb = hists[a][c.conv_id], hists[b][c.conv_id]
+                at = next((j for j, (x, y) in enumerate(zip(ha, hb))
+                           if x != y), None)
+                if at is None:
+                    continue
+                pos, fp32, _ = rows[tuple(ha)]
+                row = fp32[pos.index(at)]
+                parts.append((at, float((row[ha[at]] - row[hb[at]]).abs())))
+            pairs[f"{a} / {b}"] = {"equal": len(convs) - len(parts),
+                                   "parting_at": parts}
+    return {"policies": per, "streams": pairs, "spread": spread,
+            "tolerance": max(NEAR_TIE, spread)}
+
+
+def profile_idle(bundle, convs, sizes: dict) -> dict:
+    """One more run of fastswitch (``ladder_run``) with the device's
+    activity recorded by ``torch.profiler``: the share of its wall time in
+    which the device ran nothing (its kernels and copies merged into busy
+    intervals; the profiler slows the host, so an upper bound).  Read
+    from the profiler's raw events: building ``prof.events()`` for the
+    run's ~300,000 device operations takes tens of seconds.  Where the
+    profiler gives no device event, the share is None."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng, rec = ladder_run(bundle, convs, sizes, "fastswitch")
+    eng.shutdown()
+    spans = [(e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3)
+             for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA]
+    busy = busy_seconds(spans) if spans else None
+    return {"policy": "fastswitch", "wall_s": rec["wall_s"],
+            "device_busy_s": busy,
+            "device_idle_share": (1.0 - busy / rec["wall_s"]
+                                  if spans else None),
+            "device_ops": len(spans),
+            "seconds": time.perf_counter() - t0}
+
+
+def ladder_phase(bundle, convs, sizes: dict) -> dict:
+    """The paper's ladder (``POLICY_ORDER``: vllm, +dbg, +dbg+reuse,
+    fastswitch) through the engine in real mode on ``bundle``, each a
+    fresh engine over the same workload and pool.  Per policy a watched
+    run (every swap byte-equal, ``watch_moved_kv``; the first pays the
+    process's one-time costs), then the timed run, whose tokens must
+    equal the watched run's; both finish every turn, swap both ways,
+    retry and fail no copy, leak nothing and launch every serving
+    kernel.  On CUDA, one more fastswitch run under ``torch.profiler``
+    gives the device's idle share.  Then (``ladder_tokens``) every
+    greedy token is the fp32 dense argmax or within max(NEAR_TIE, the
+    spread of the bf16 and fp32 dense forwards), at least
+    ``LADDER_NEAR_TIE_SHARE`` of each policy's tokens within NEAR_TIE,
+    and every two policies' streams are equal or first part within the
+    tolerance.  Each run's seconds and the token record go to standard
+    error as they come."""
+    import torch
+    from repro_torch.launch.scenarios import POLICY_ORDER
+    out, hists = {}, {}
+    for pol in POLICY_ORDER:
+        t0 = time.perf_counter()
+        eng, seen = ladder_run(bundle, convs, sizes, pol, watch=True)
+        watched = dict(eng._token_hist_by_conv)
+        eng.shutdown()
+        del eng
+        gc.collect()
+        watched_s = time.perf_counter() - t0
+        eng, rec = ladder_run(bundle, convs, sizes, pol)
+        if eng._token_hist_by_conv != watched:
+            raise AssertionError(f"{pol}: the timed run's tokens differ "
+                                 "from the watched run's")
+        rec.update(moved_kv_blocks_checked=seen["moved_kv_blocks_checked"],
+                   watched_run_s=watched_s)
+        hists[pol] = dict(eng._token_hist_by_conv)
+        out[pol] = rec
+        eng.shutdown()
+        del eng
+        gc.collect()
+        print(json.dumps({"ladder_policy": pol, **rec}), file=sys.stderr,
+              flush=True)
+    profiled = None
+    if torch.cuda.is_available() and \
+            bundle["params"]["embed"]["table"].is_cuda:
+        profiled = profile_idle(bundle, convs, sizes)
+    t0 = time.perf_counter()
+    toks = ladder_tokens(bundle, convs, hists)
+    toks["dense_check_s"] = time.perf_counter() - t0
+    print(json.dumps({"ladder_tokens": toks}), file=sys.stderr, flush=True)
+    tol = toks["tolerance"]
+    worst = {p: r["greedy_max_gap"] for p, r in toks["policies"].items()
+             if r["greedy_max_gap"] >= tol}
+    if worst:
+        raise AssertionError(f"greedy tokens below the fp32 dense maximum by "
+                             f"{tol} or more: {worst}")
+    few = {p: f"{r['greedy_within_near_tie']} of {r['greedy_generated']}"
+           for p, r in toks["policies"].items()
+           if r["greedy_within_near_tie"]
+           < LADDER_NEAR_TIE_SHARE * r["greedy_generated"]}
+    if few:
+        raise AssertionError(f"fewer than {LADDER_NEAR_TIE_SHARE} of the "
+                             f"greedy tokens within {NEAR_TIE} of the fp32 "
+                             f"dense maximum: {few}")
+    apart = {k: [d for d in v["parting_at"] if d[1] >= tol]
+             for k, v in toks["streams"].items()}
+    apart = {k: v for k, v in apart.items() if v}
+    if apart:
+        raise AssertionError(f"policies part at (position, gap) past "
+                             f"{tol}: {apart}")
+    for pol, r in toks["policies"].items():
+        out[pol].update(r)
+    cfg = bundle["cfg"]
+    return {"arch": cfg.name, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "policies": out,
+            "streams": toks["streams"], "near_tie": NEAR_TIE,
+            "near_tie_share": LADDER_NEAR_TIE_SHARE,
+            "dense_spread": toks["spread"], "tolerance": tol,
+            "dense_reference": "fp32 forward of the bf16 weights",
+            "dense_check_s": toks["dense_check_s"], "profiled": profiled}
+
+
+# ---------------------------------------------------------------------------
 # phase 5g: MoE serving (olmoe-1b-7b)
 # ---------------------------------------------------------------------------
 
@@ -4163,14 +4526,22 @@ def launcher_refusals(device) -> dict:
     return _refusals(_refusal_cases(device, SSM_ARCH))
 
 
+# the depth the ssm phase serves and trains each arch at, every width
+# kept: zamba2-7b's first period and its 3 remainder layers (8 Mamba2
+# layers of its 68), rwkv6-1.6b's first 4 layers of 24; chip_smoke's
+# time limit holds them (the launchers run the whole models)
+SSM_DEPTH = {"zamba2-7b": 9, "rwkv6-1.6b": 4}
+
+
 def ssm_phase(device, zcfg=None, rcfg=None, serve=((8, 256), 32, 512),
               cut_batch=(2, 64), train=None) -> dict:
-    """The SSM and hybrid families on ``device`` (full width where the
-    configs are not given, for a rehearsal on the CPU):
+    """The SSM and hybrid families on ``device`` (at full width and
+    ``SSM_DEPTH`` where the configs are not given; a rehearsal on the
+    CPU passes reduced ones):
 
       * ``zamba2``: zamba2-7b served through the contiguous-cache steps
         (``zamba2_serve``), the SSD scan kernel once per Mamba2 layer of
-        a prefill (68);
+        a prefill (8 at ``SSM_DEPTH``);
       * ``zamba2_train``: its train step cut to one period, against the
         CPU (``zamba2_train_cut``), no scan kernel launched;
       * ``rwkv6``: rwkv6-1.6b trained and decoded through ``train_phase``
@@ -4178,8 +4549,8 @@ def ssm_phase(device, zcfg=None, rcfg=None, serve=((8, 256), 32, 512),
         subprocess;
       * ``refusals``: ``launcher_refusals``."""
     from repro_torch.configs import get_config
-    zcfg = zcfg or get_config(SSM_ARCH)
-    rcfg = rcfg or get_config(RWKV_ARCH)
+    zcfg = zcfg or cut_depth(get_config(SSM_ARCH), SSM_DEPTH[SSM_ARCH])
+    rcfg = rcfg or cut_depth(get_config(RWKV_ARCH), SSM_DEPTH[RWKV_ARCH])
     prompts, n_steps, cache_len = serve
     parts = {
         "zamba2": lambda: zamba2_serve(device, zcfg, prompts, n_steps,
@@ -4187,14 +4558,16 @@ def ssm_phase(device, zcfg=None, rcfg=None, serve=((8, 256), 32, 512),
         "zamba2_train": lambda: zamba2_train_cut(device, zcfg, cut_batch),
         "rwkv6": lambda: train_phase(device, cfg=rcfg, **(train or {})),
         "refusals": lambda: launcher_refusals(device)}
-    out = {}
+    out, part_s = {}, {}
     for name, run in parts.items():
+        t0 = time.perf_counter()
         out[name] = run()
+        part_s[name] = time.perf_counter() - t0
         # each part's result as it comes, on stderr: a later part's
         # failure leaves the earlier ones readable
-        print(json.dumps({"ssm_part": name, **out[name]}), file=sys.stderr,
-              flush=True)
-    return out
+        print(json.dumps({"ssm_part": name, "part_s": part_s[name],
+                          **out[name]}), file=sys.stderr, flush=True)
+    return {**out, "part_s": part_s}
 
 
 # ---------------------------------------------------------------------------
@@ -4677,15 +5050,25 @@ def deepseek_serve(device, cfg, prompts=(4, 512), n_steps: int = 32) -> dict:
     return out
 
 
+# the depth the families phase serves and trains gemma3-12b and
+# whisper-large-v3 at, every width kept: gemma3's first period of its 8
+# (5 local : 1 global layers), whisper's 4 + 4 layers of its 32 + 32;
+# chip_smoke's time limit holds them (the train launcher runs whisper
+# whole)
+FAMILIES_DEPTH = {"gemma3-12b": 6, "whisper-large-v3": 4}
+
+
 def families_phase(device, gcfg=None, dcfg=None, wcfg=None,
                    gemma=(((4, 1500), (1, 5000)), 32), gemma_train=(2, 64),
                    deepseek=((4, 512), 32), check=(2, 16),
                    whisper=None) -> dict:
-    """The last three families on ``device`` at full width where the
-    configs are not given (a rehearsal on the CPU passes reduced ones):
+    """The last three families on ``device`` at full width and
+    ``FAMILIES_DEPTH`` where the configs are not given (a rehearsal on
+    the CPU passes reduced ones):
 
-      * ``gemma3``: gemma3-12b whole, served through the contiguous-cache
-        steps (``gemma3_serve``; ``gemma``: (prefills, decode steps));
+      * ``gemma3``: gemma3-12b at one period, served through the
+        contiguous-cache steps (``gemma3_serve``; ``gemma``: (prefills,
+        decode steps));
       * ``gemma3_train``: its train step cut to one period (5 local + 1
         global layers, 3.36 B parameters) through ``train_steps``
         (``gemma_train``: the batch), and ``gemma3_vs_cpu``: the smoke
@@ -4696,7 +5079,8 @@ def families_phase(device, gcfg=None, dcfg=None, wcfg=None,
         (``deepseek_serve``; ``deepseek``: (prompts, steps)) and
         ``deepseek_vs_cpu``: its smoke config on the card against the
         CPU;
-      * ``whisper``: whisper-large-v3 whole through ``train_phase`` (8
+      * ``whisper``: whisper-large-v3 at 4 + 4 layers through
+        ``train_phase`` (8
         steps at B 8 x T 128, remat on against off, the card against
         the CPU at 2 + 2 layers, a prefill of 8 x 64 and 32 greedy steps
         to a 128-position cache against the dense forward, its
@@ -4709,9 +5093,11 @@ def families_phase(device, gcfg=None, dcfg=None, wcfg=None,
     Each part's result goes to standard error as it comes."""
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.models import transformer as T
-    gcfg = gcfg or get_config(GEMMA_ARCH)
+    gcfg = gcfg or cut_depth(get_config(GEMMA_ARCH),
+                             FAMILIES_DEPTH[GEMMA_ARCH])
     dcfg = dcfg or get_config(DEEPSEEK_ARCH)
-    wcfg = wcfg or get_config(WHISPER_ARCH)
+    wcfg = wcfg or cut_depth(get_config(WHISPER_ARCH),
+                             FAMILIES_DEPTH[WHISPER_ARCH])
     R, _ = T._gemma3_shape(gcfg)
     whisper = whisper or dict(batch=(8, 128), steps=8,
                               decode=(8, 64, 32, 128), cpu_check=(2, 64),
@@ -4732,12 +5118,14 @@ def families_phase(device, gcfg=None, dcfg=None, wcfg=None,
             for arch in (GEMMA_ARCH, DEEPSEEK_ARCH, WHISPER_ARCH)
             for kind, case in _refusal_cases(device, arch).items()
             if kind == "serve" or arch != WHISPER_ARCH})}
-    out = {}
+    out, part_s = {}, {}
     for name, run in parts.items():
+        t0 = time.perf_counter()
         out[name] = run()
-        print(json.dumps({"families_part": name, **out[name]}),
-              file=sys.stderr, flush=True)
-    return out
+        part_s[name] = time.perf_counter() - t0
+        print(json.dumps({"families_part": name, "part_s": part_s[name],
+                          **out[name]}), file=sys.stderr, flush=True)
+    return {**out, "part_s": part_s}
 
 
 # ---------------------------------------------------------------------------
@@ -5452,6 +5840,51 @@ def start_dryrun_all(out_dir: Path, multi_pod: str = "off",
     return proc, out, t0, watch_exit(proc, t0)
 
 
+FAIRNESS_EXAMPLE = "torch_fairness_comparison.py"
+FAIRNESS_ROW = re.compile(r"^(\S+) +(\d+) ms +(\d+) ms +(\d+) ms +([\d.]+) "
+                          r"+(\d+) +([\d.]+)s$")
+
+
+def start_fairness_example():
+    """``python examples/torch_fairness_comparison.py`` (the paper's
+    ladder in sim mode, CPU only) in the background at a lower priority;
+    returns (process, ``watch_exit``'s record of it)."""
+    import os
+    proc = subprocess.Popen(
+        [sys.executable, str(EXAMPLES / FAIRNESS_EXAMPLE)], cwd=ROOT,
+        env=_dryrun_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, preexec_fn=lambda: os.nice(19))
+    return proc, watch_exit(proc, time.perf_counter())
+
+
+def check_fairness_example(bg) -> dict:
+    """Wait for the background example, at most 600 s; it must exit 0
+    having printed the header and one well-formed line per policy of
+    ``POLICY_ORDER``, in order.  Returns its rows and seconds."""
+    from repro_torch.launch.scenarios import POLICY_ORDER
+    proc, done = bg
+    done["thread"].join(timeout=600.0)
+    if done["thread"].is_alive():
+        proc.kill()
+        raise AssertionError(f"{FAIRNESS_EXAMPLE} ran past 600 s")
+    if proc.returncode != 0:
+        raise AssertionError(f"{FAIRNESS_EXAMPLE} exited {proc.returncode}: "
+                             f"{done['stderr'][-2000:]}")
+    rows = [m for m in map(FAIRNESS_ROW.match, done["stdout"].splitlines())
+            if m]
+    if [m[1] for m in rows] != list(POLICY_ORDER):
+        raise AssertionError(f"{FAIRNESS_EXAMPLE}: rows for "
+                             f"{[m[1] for m in rows]}, not {POLICY_ORDER}: "
+                             f"{done['stdout'][-2000:]}")
+    keys = ("p95_ttft_ms", "p99_ttft_ms", "p999_tbt_ms", "throughput_tok_s",
+            "swap_ops", "stall_s")
+    return {"seconds": done["seconds"],
+            "rows": {m[1]: dict(zip(keys, (int(m[2]), int(m[3]), int(m[4]),
+                                           float(m[5]), int(m[6]),
+                                           float(m[7]))))
+                     for m in rows}}
+
+
 def dryrun_counts(stdout: str) -> dict:
     """The dry-run's printed cases: OK, SKIP and FAIL lines counted, and
     the failed and skipped cases' lines."""
@@ -5726,6 +6159,9 @@ def main() -> int:
     import tempfile
     dryrun_dir = tempfile.TemporaryDirectory()
     dryrun_bg = start_dryrun_all(Path(dryrun_dir.name))
+    # the fairness example (sim mode, CPU only) beside it: the port's own
+    # entry point, on a machine without jax
+    fairness_bg = start_fairness_example()
 
     # 3. kernels
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
@@ -5968,6 +6404,13 @@ def main() -> int:
     reuse = phase_alone("reuse")
     emit("reuse", **reuse)
 
+    # 5p. the paper's four-policy ladder with mistral-nemo-12b at full
+    # width, each policy a fresh engine on one bundle, in a process of its
+    # own (``scripts/ladder_probe.py``)
+    torch.cuda.empty_cache()
+    ladder = phase_alone("ladder")
+    emit("ladder", **ladder)
+
     # 5g. MoE serving: olmoe-1b-7b at full width, then its launcher, in a
     # process of its own
     torch.cuda.empty_cache()
@@ -6012,6 +6455,9 @@ def main() -> int:
     dev_run = dev_phase("cuda")
     emit("dev", nvidia_smi=smi[0], seconds=time.perf_counter() - t0,
          **dev_run)
+
+    # 5q. the fairness example, started in the background after phase 2
+    emit("fairness_example", **check_fairness_example(fairness_bg))
 
     # 6. device times of phase 3's calls, after the timed engine runs
     for t in all_timed.values():
@@ -6094,6 +6540,8 @@ def main() -> int:
                 "examples_llama3p2_3b": ex["launches"][kname],
                 **{f"reuse_cpu{n}": reuse[str(n)]["launches"][kname]
                    for n in REUSE_CPU_BLOCKS},
+                **{f"ladder_{LADDER_ARCH}_{pol}": r["launches"][kname]
+                   for pol, r in ladder["policies"].items()},
                 **{f"mesh_{part}_1x{len(m['launches_per_shard'][kname])}": {
                     "total": m["launches"][kname],
                     "per_shard": m["launches_per_shard"][kname]}

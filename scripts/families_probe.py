@@ -8,8 +8,9 @@ process of its own.
 
 Builds the kernels (none of them is on these families' path: their
 attention is plain PyTorch, as the reference's is plain XLA), then,
-through chip_smoke's ``families_phase``, at full width: serves
-gemma3-12b whole from its bf16 serving init (prefills of 4 x 1500 and 1 x
+through chip_smoke's ``families_phase``, at full width and the depth
+of ``FAMILIES_DEPTH``: serves gemma3-12b cut to one period (6 layers)
+from its bf16 serving init (prefills of 4 x 1500 and 1 x
 5000 tokens, 32 greedy decode steps each past the local rings' wrap,
 the rings' slots checked, tokens against the dense forward; times, a
 profiled step, its bound, peak memory), trains its one-period cut for 8
@@ -18,8 +19,8 @@ serves deepseek-v2-236b cut to 2 layers (a prefill of 4 x 512, 32
 absorbed-weight MLA decode steps, layer 0's decode against its sequence
 forward, tokens counted against the dense forward) and holds its smoke
 config's gradients to the CPU's; trains and decodes whisper-large-v3
-whole through chip_smoke's ``train_phase``, its launcher as a
-subprocess; and checks the launchers' refusals.  Prints the card's name
+cut to 4 + 4 layers through chip_smoke's ``train_phase``, its launcher
+(the whole model) as a subprocess; and checks the launchers' refusals.  Prints the card's name
 and power limit, then the phase's JSON line.  Needs a GPU; imports
 nothing of JAX.
 """

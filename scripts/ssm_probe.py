@@ -6,14 +6,16 @@
 ``chip_smoke.py`` runs its ``ssm`` phase through this script, in a
 process of its own.
 
-Builds the kernels, then, through chip_smoke's ``ssm_phase``: serves
-zamba2-7b at full width (bf16 serving copy; a prefill of 8 prompts of 256
-with the SSD scan kernel once per Mamba2 layer, 68 launches, against the
+Builds the kernels, then, through chip_smoke's ``ssm_phase``, at full
+width and the depth of ``SSM_DEPTH``: serves zamba2-7b cut to one period
+and its remainder layers (bf16 serving copy; a prefill of 8 prompts of
+256 with the SSD scan kernel once per Mamba2 layer, 8 launches, against the
 same prefill with the kernel's plain version; 32 greedy decode steps
 against the dense forward; times, the scan at the prefill's shape, a
 profiled decode step, peak memory), trains its one-period cut against the
-CPU, trains and decodes rwkv6-1.6b at full width (chip_smoke's
-``train_phase``, its launcher as a subprocess), and checks that the
+CPU, trains and decodes rwkv6-1.6b cut to 4 layers (chip_smoke's
+``train_phase``, its launcher on the whole model as a subprocess), and
+checks that the
 launchers refuse zamba2-7b's training state and real-mode serving.
 Prints the card's name and power limit, then the phase's JSON line.
 Needs a GPU; imports nothing of JAX.

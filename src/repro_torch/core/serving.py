@@ -1236,12 +1236,14 @@ class ServingEngine:
 
     def _preempt(self, rid: int) -> None:
         """Swap mode: KV to CPU, request -> SWAPPED.  Recompute mode: KV
-        dropped, request -> WAITING for re-prefill.  A real-mode request
-        caught MID chunked prefill has no pending decode token to resume
-        from — it aborts to WAITING instead (the processed prefix is kept
-        as a CPU reuse copy; re-admission opens a fresh prefill)."""
+        dropped, request -> WAITING for re-prefill.  A request caught MID
+        chunked prefill, in either engine mode, has no pending decode
+        token to resume from — it aborts to WAITING instead (the
+        processed prefix is kept as a CPU reuse copy; re-admission opens a
+        fresh prefill), or, a resume caught mid recomputation, back to
+        SWAPPED (``_abort_chunked_prefill``)."""
         req = self._req(rid)
-        if self.pools is not None and req.prefill_remaining > 0:
+        if req.prefill_remaining > 0:
             self._abort_chunked_prefill(rid)
             return
         self._swap_out(rid, keep_copy=True)
@@ -1253,20 +1255,22 @@ class ServingEngine:
             self._event(rid, "preempt", to="swapped")
 
     def _abort_chunked_prefill(self, rid: int) -> None:
-        """Mid-prefill preemption (real mode, DESIGN.md §5): drop the
-        runner's carry buffers, keep the processed prefix as a CPU reuse
-        copy (``context_tokens`` counts exactly the chunk-inserted
-        tokens), roll back the turn's prompt extension and return the
-        request to WAITING — the next ``_admit`` re-extends the turn's
-        stored prompt and opens a fresh chunked prefill, reusing the
-        saved prefix up to ``prefix_tokens``.
+        """Mid-prefill preemption (DESIGN.md §5): drop the runner's carry
+        buffers (real mode), keep the processed prefix as a CPU reuse copy
+        (``context_tokens`` counts exactly the chunk-processed tokens, in
+        both modes), roll back the turn's prompt extension (real mode:
+        sim never extends the history) and return the request to WAITING
+        — the next ``_admit`` re-extends the turn's stored prompt and
+        opens a fresh chunked prefill, reusing the saved prefix up to
+        ``prefix_tokens``.
 
         A chunked recompute-mode RESUME (``prefill_is_resume``) has no
         prompt extension to roll back and no prefix worth keeping — the
         partial recompute is dropped whole and ``resume_tokens`` snaps
         back to the full context (a resume restarts from scratch)."""
         req = self._req(rid)
-        self.runner.prefill_abort(rid)
+        if self.runner is not None:
+            self.runner.prefill_abort(rid)
         if req.prefill_is_resume and \
                 self.config.policy.preemption_mode == "recompute":
             # recompute-mode branch of _swap_out: release + resume_tokens
@@ -1291,8 +1295,9 @@ class ServingEngine:
         req.prefill_remaining = 0
         req.resume_tokens = 0          # recompute mode: fresh _admit, not
         #                                a resume (no first token emitted)
-        n_prompt = req.current_turn().prompt_tokens
-        del req.token_history[len(req.token_history) - n_prompt:]
+        if self.runner is not None:
+            n_prompt = req.current_turn().prompt_tokens
+            del req.token_history[len(req.token_history) - n_prompt:]
         self.sched.move(rid, ReqState.WAITING)
         self._event(rid, "preempt", to="waiting", mid_prefill=True)
 
@@ -1333,8 +1338,7 @@ class ServingEngine:
         if chunk and self.pools is None and new_tokens > chunk:
             # BEYOND-PAPER (Sarathi-style): spread the prefill over
             # iterations so long prompts stop stalling the decode batch
-            req.prefill_remaining = new_tokens
-            req.context_tokens = new_ctx
+            self._begin_sim_chunked_prefill(req, new_ctx, reused)
             self.metrics.prefills += 1
             self.sched.move(rid, ReqState.RUNNING)
             self._event(rid, "admit", reused=reused, chunked=True)
@@ -1475,21 +1479,27 @@ class ServingEngine:
             self.clock, self.gpu_mgr.request_block_ids(rid))
         gpu_blocks = self._block_table(rid)
         req.kv_gap = None
-        # A sim-mode recompute preemption can land MID chunked prefill —
-        # before the turn's first token existed (real mode can't reach
-        # here: _abort_chunked_prefill reroutes those to a fresh admit).
-        # Such a resume must still EMIT the first token on completion;
-        # a resume of a decoding request (first_token_us set) must not.
+        # A resume whose turn has no first token yet must still EMIT it
+        # on completion; a resume of a decoding request (first_token_us
+        # set) must not.  (``_preempt`` aborts a request caught mid
+        # prefill to a fresh admission, so a preempted request resumes
+        # with its first token emitted.)
         emitted = req.first_token_us is not None
-        # KV resident before the recomputation (the seed of its carry),
-        # and the tokens the recomputation charges
-        seeded, todo, short = shared, ctx, {}
+        # KV resident before the recomputation (the seed of its carry)
+        seeded, short = shared, {}
+        if short_valid is not None and short_valid > shared:
+            if not self._restore_prefix(rid, shared, short_valid):
+                return False
+            seeded = short_valid
+        # the positions left to hold KV past the resident prefix (all but
+        # the pending token of an emitted turn), as the runner counts them
+        left = (ctx - 1 if emitted else ctx) - seeded
+        # the tokens the recomputation charges: a short copy's resume its
+        # ``left``; any other the whole context, the reference's count
+        # (the monolithic path below keeps it for the reference's parity)
+        todo = ctx
         if short_valid is not None:
-            if short_valid > shared:
-                if not self._restore_prefix(rid, shared, short_valid):
-                    return False
-                seeded = short_valid
-            todo = (ctx - 1 if emitted else ctx) - seeded
+            todo = left
             self.reuse.note_short_copy_resume(seeded - shared, todo)
             short = {"short_copy": True, "valid_tokens": short_valid}
         chunk = self.config.policy.chunked_prefill_tokens
@@ -1513,7 +1523,7 @@ class ServingEngine:
                     req.prefill_remaining = self.runner.prefill_begin(
                         view, emit_first=False)
             else:
-                req.prefill_remaining = todo
+                req.prefill_remaining = max(left, 1)
             req.prefill_is_resume = emitted
             req.resume_tokens = 0
             self.metrics.prefills += 1
@@ -1680,6 +1690,35 @@ class ServingEngine:
                 self._emit_first_token(rid)
         return n
 
+    def _begin_sim_chunked_prefill(self, req: Request, new_ctx: int,
+                                   reused: int) -> None:
+        """Sim mode's ``_begin_real_chunked_prefill``: the prompt's
+        positions past the ``reused`` prefix are left to process, and
+        ``context_tokens`` counts those whose KV is resident (the reused
+        prefix now, each chunk as ``_sim_prefill_chunk`` bills it), as in
+        real mode — so a mid-prefill preemption keeps exactly the
+        processed prefix."""
+        req.prefill_remaining = new_ctx - reused
+        req.context_tokens = reused
+
+    def _sim_prefill_chunk(self, rid: int) -> int:
+        """Sim mode's ``_real_prefill_chunk``: bill one chunk of the
+        request's in-flight prefill; on its last chunk a fresh prefill
+        emits the first token (contained), a RESUME just ends.  Returns
+        the chunk token count (charged to the sim clock by the caller)."""
+        req = self._req(rid)
+        n = min(self.config.policy.chunked_prefill_tokens,
+                req.prefill_remaining)
+        req.prefill_remaining -= n
+        if not req.prefill_is_resume:
+            req.context_tokens += n
+        if req.prefill_remaining == 0:
+            if req.prefill_is_resume:
+                req.prefill_is_resume = False
+            else:
+                self._contained(rid, self._emit_first_token, rid)
+        return n
+
     def _real_decode(self, rids: List[int]) -> None:
         """Batched paged decode through the device-resident runner: only
         changed block-table rows are uploaded, the pool is donated, and
@@ -1810,21 +1849,12 @@ class ServingEngine:
             # at most ONE prompt chunk per iteration (highest priority
             # first) interleaved with the decode batch — the Sarathi-style
             # fairness lever bounding tail TBT during admission bursts
-            chunk = self.config.policy.chunked_prefill_tokens
             rid_p = max(prefilling, key=self.sched.priority)
-            reqp = self._req(rid_p)
             if self.pools is not None:
                 chunk_tokens = self._contained(
                     rid_p, self._real_prefill_chunk, rid_p) or 0
             else:
-                chunk_tokens = min(chunk, reqp.prefill_remaining)
-                reqp.prefill_remaining -= chunk_tokens
-                if reqp.prefill_remaining == 0:
-                    if reqp.prefill_is_resume:
-                        reqp.prefill_is_resume = False
-                    else:
-                        self._contained(rid_p, self._emit_first_token,
-                                        rid_p)
+                chunk_tokens = self._sim_prefill_chunk(rid_p)
         if rids or prefilling:
             # block allocation for the new token (conflict-checked in
             # _allocate_token_slot).  Iterate over a SNAPSHOT and track a

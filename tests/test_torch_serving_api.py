@@ -21,7 +21,7 @@ from repro_torch.data.sharegpt import (Conversation, Turn,
                                        synth_prompt_ids)
 from test_torch_serve import swaps_follow_the_clock  # noqa: F401
 from torch_parity import (assert_histories_agree, assert_sim_equal,
-                          smoke_bundles)
+                          pin_reference_sim_prefill, smoke_bundles)
 from torch_threads import one_torch_thread  # noqa: F401
 
 
@@ -204,14 +204,18 @@ def test_max_tokens_one_generates_exactly_one():
     eng.shutdown()
 
 
-def test_recompute_chunked_mid_prefill_preempt_still_emits_first_token():
+def test_recompute_chunked_mid_prefill_preempt_still_emits_first_token(
+        monkeypatch):
     """A sim-mode recompute preemption landing MID chunked prefill (no
     first token yet) resumes through the chunked machine — and the
     completion must still emit exactly one first token (regression: the
-    resume path skipped emission unconditionally)."""
+    resume path skipped emission unconditionally).  The reference's sim
+    route, pinned (``pin_reference_sim_prefill``): the port aborts such a
+    request to a fresh admission, held by the next case."""
     from dataclasses import replace
 
     from repro_torch.core.policies import POLICIES
+    pin_reference_sim_prefill(monkeypatch)
     pol = replace(POLICIES["vllm-recompute"], chunked_prefill_tokens=16)
     eng = ServingEngine(
         EngineConfig(mode="sim", num_gpu_blocks=64, num_cpu_blocks=256,
@@ -229,6 +233,46 @@ def test_recompute_chunked_mid_prefill_preempt_still_emits_first_token():
     assert len(firsts) == 1, "resume completion lost/duplicated first token"
     assert len(eng.metrics.ttfts_us) == 1
     assert sum(o.new_tokens for o in outs if o.handle == h) == 7
+    eng.shutdown()
+
+
+@pytest.mark.parametrize("policy", ["vllm-recompute", "fastswitch"])
+def test_sim_mid_prefill_preempt_restarts_the_prefill(policy):
+    """The port's sim route: a request preempted MID chunked prefill, in
+    either preemption mode, aborts the prefill as real mode does — back
+    to WAITING with no prefill pending and no resume (the sanitizer's P1
+    after every step), its processed prefix, and only it, counted in
+    ``context_tokens`` (and, in swap mode, kept as a reuse copy) — and the
+    re-admission emits exactly one first token and the turn's tokens."""
+    from dataclasses import replace
+
+    from repro_torch.core import ReqState
+    from repro_torch.core.policies import POLICIES
+    pol = replace(POLICIES[policy], chunked_prefill_tokens=16)
+    eng = ServingEngine(
+        EngineConfig(mode="sim", num_gpu_blocks=64, num_cpu_blocks=256,
+                     block_size=16, max_running=8, policy=pol,
+                     check_invariants_every=1),
+        trace=PriorityTrace("random", 1e-9, seed=0))
+    h = eng.add_request(60, SamplingParams(max_tokens=7))
+    eng.step()
+    req = eng._req(h)
+    assert req.prefill_remaining == 44 and req.first_token_us is None, \
+        "scenario never caught the request mid-prefill"
+    assert req.context_tokens == 16          # the processed chunk
+    eng._preempt(h)
+    assert req.state is ReqState.WAITING
+    assert (req.prefill_remaining, req.resume_tokens) == (0, 0)
+    copy = eng.reuse.copies.get(h)
+    if pol.preemption_mode == "swap":
+        assert copy is not None and copy.valid_tokens == 16
+    outs = _drain(eng)
+    firsts = [o for o in outs if o.handle == h and o.first_token]
+    assert len(firsts) == 1, "re-admission lost/duplicated first token"
+    assert len(eng.metrics.ttfts_us) == 1
+    assert sum(o.new_tokens for o in outs if o.handle == h) == 7
+    kinds = [e.kind for e in eng.events if e.handle == h]
+    assert kinds.count("admit") == 2 and "resume" not in kinds
     eng.shutdown()
 
 

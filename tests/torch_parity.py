@@ -73,3 +73,51 @@ def assert_sim_equal(ours, ref) -> None:
     got, want = sim_outcome(ours), sim_outcome(ref)
     for key in want:
         assert got[key] == want[key], key
+
+
+def pin_reference_sim_prefill(monkeypatch) -> None:
+    """Give the port's ``ServingEngine`` the reference's sim-mode chunked
+    prefill: a sim request preempted mid prefill is swapped out (or, in
+    recompute mode, dropped to a resume) whole, keeping its
+    ``prefill_remaining``, and ``context_tokens`` holds the whole prompt
+    from admission on.  The port aborts such a request instead, as real
+    mode does (``ServingEngine._abort_chunked_prefill``), and counts only
+    the processed prefix in ``context_tokens``; a scenario that meets the
+    difference is held to the reference exactly under this pin, beside a
+    case that holds the port's route.  Not pinned: the sim billing of a
+    chunked resume of a decoding request (the port's counts the positions
+    left to refill, the reference's the whole context)."""
+    from repro_torch.core import ReqState, ServingEngine
+    port_preempt = ServingEngine._preempt
+
+    def preempt(self, rid):
+        req = self._req(rid)
+        if self.pools is not None or req.prefill_remaining == 0:
+            return port_preempt(self, rid)
+        self._swap_out(rid, keep_copy=True)
+        if self.config.policy.preemption_mode == "recompute":
+            self.sched.move(rid, ReqState.WAITING)
+            self._event(rid, "preempt", to="waiting")
+        else:
+            self.sched.move(rid, ReqState.SWAPPED)
+            self._event(rid, "preempt", to="swapped")
+
+    def begin(self, req, new_ctx, reused):
+        req.prefill_remaining = new_ctx - reused
+        req.context_tokens = new_ctx
+
+    def chunk(self, rid):
+        req = self._req(rid)
+        n = min(self.config.policy.chunked_prefill_tokens,
+                req.prefill_remaining)
+        req.prefill_remaining -= n
+        if req.prefill_remaining == 0:
+            if req.prefill_is_resume:
+                req.prefill_is_resume = False
+            else:
+                self._contained(rid, self._emit_first_token, rid)
+        return n
+
+    monkeypatch.setattr(ServingEngine, "_preempt", preempt)
+    monkeypatch.setattr(ServingEngine, "_begin_sim_chunked_prefill", begin)
+    monkeypatch.setattr(ServingEngine, "_sim_prefill_chunk", chunk)
