@@ -9,8 +9,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
   1. device  — the card's name and power limit (``nvidia-smi``); fails
                when ``torch.cuda.is_available()`` is false.
   2. build   — ``nvcc`` on every ``src/repro_torch/csrc/*.cu``, one process
-               per source, all started together; seconds and the
-               ``-Xptxas -v`` register / shared-memory lines.
+               per source, all started together beside phase 1's CUDA
+               start-up; seconds and the ``-Xptxas -v`` register /
+               shared-memory lines.
   3. kernels — each kernel's wrapper against its plain PyTorch version on
                the card, and CUDA-event times of the kernel, the plain
                version and one PyTorch library call computing the same
@@ -19,7 +20,10 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                the engine's bucket, B 8 x 64 pages with contexts 256-600,
                also at olmoe-1b-7b's 16 / 16 heads, a GQA group of 1;
                timed at B 32 x 128 pages and at the engine's bucket, both
-               groups) and one 64-block swap chunk (gather, scatter, and
+               groups), the kernels' domain past D 128 (B 32 x 128 pages
+               at D 64 in bf16 and in fp32, at D 256, and at Hq 32 / Hkv
+               2, a group of 16, at D 128; each timed, fp32 within 1e-5)
+               and one 64-block swap chunk (gather, scatter, and
                the same chunk as per-block pairs and as grouped 2-D runs:
                byte-equal; gather and scatter also over olmoe-1b-7b's
                pool, 32 planes of 64 KiB rows); its prefill attention,
@@ -83,8 +87,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                under both policies (vllm and fastswitch, 8 conversations;
                per-policy summary, swaps, ``callstack_wall_s`` and its
                kernel launches) and the online smoke with its event log
-               passed through ``validate_event_log``; a non-zero exit
-               fails the script.
+               passed through ``validate_event_log`` (run beside phases 5
+               and 5a, which time nothing); a non-zero exit fails the
+               script.
   5e. frontend — ``FrontendServer`` over two full-width real replicas on
                the card (one parameter bundle, a pool each: 64 GPU and 256
                CPU blocks, max 4 running, max batch 4, fastswitch) on
@@ -101,9 +106,10 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                and an interrupt stops it with exit code 0.
   5f. prefix — the launcher's ``--online --real --prefix-cache --smoke``
                (prefix hits, tokens saved, the C1/C2 sanitizer on every
-               step, a well-formed event log, its kernels launched) and the
-               same smoke with the cache off: each conversation's greedy
-               tokens equal, or the first difference a near-tie.
+               step, a well-formed event log, its kernels launched) and,
+               at the same time, the same smoke with the cache off: each
+               conversation's greedy tokens equal, or the first
+               difference a near-tie.
   5m. control — in process right after 5f, on the engine phase's
                bundle, workload and pool (160 GPU / 1024 CPU blocks), with
                the serving kernels' launch counts set to 0 just before
@@ -127,7 +133,28 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                abort a new request decoding the dense argmax; a stop token
                mid-stream ending the turn as stop, its tokens byte-equal
                to the stop-free run's through the stop token.
-  5n. reuse  — right after 5m, in a process of its own
+  5r. reduced — right after 5m, in this process (alone:
+               ``scripts/reduced_probe.py``): the reference's real-mode
+               models, the reduced configs of the five archs the paged
+               path serves (qwen2-1.5b, olmoe-1b-7b, llama3.2-3b,
+               mistral-nemo-12b, llava-next-mistral-7b: d_model 256, 2
+               layers, 4 query heads of 64 over 2 KV heads, olmoe 4 / 4
+               with 4 experts), bf16 serving weights drawn once from seed
+               0 on the CPU and copied to the card, on the engine phase's
+               workload and pool under vllm and fastswitch: each run on
+               the card (a fresh engine, swap tasks held to the simulated
+               clock, every staged swap byte for byte) against the same
+               run on the host's CPU (worker processes beside the card
+               runs): swap ops and blocks each way equal, every stream
+               equal or first parting at a token whose CPU engine call
+               had a top-2 logit gap under NEAR_TIE (or, in olmoe, a
+               routing gap under ROUTE_TIE), paged attention launched (at
+               head_dim 64) on every card run.  Then the launcher's
+               ``--online --smoke --real --device cuda --reduced --arch
+               qwen2-1.5b``, the reference's tier-1 real smoke on the
+               card: exit 0 with its drain and token assertions, paged
+               attention launched.
+  5n. reuse  — right after 5r, in a process of its own
                (``scripts/reuse_probe.py``): qwen2-1.5b at full width
                (random fp32 weights from seed 0, as the engine phase) on
                the engine phase's workload with 160 GPU blocks and a host
@@ -170,8 +197,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                tolerance.  Per policy: wall, host
                seconds by method, swap
                operations and blocks each way, ``fenced_swap_ins``,
-               launches; the device's idle share of one more, profiled,
-               fastswitch run.
+               launches; the device's idle share in a window of one more
+               fastswitch run, iterations 40-54 under the profiler
+               (``PROFILE_WINDOW``).
   5g. moe    — olmoe-1b-7b at full width (16 layers, d_model 2048, 16 / 16
                heads of 128, 64 experts top-8, random weights from a seed,
                bf16 serving copy only) through the engine phase's workload:
@@ -330,10 +358,11 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                examples/torch_train_lm.py --steps 50`` (exit 0, the loss
                falls, the checkpoint round-trips byte for byte).
   5o. dev    — the dev scripts as three subprocesses at once on the card:
-               ``scripts/torch_dev_kernels.py`` (paged attention, per-block
-               and grouped copies at ``scripts/dev_kernels.py``'s sizes,
-               each against its plain version: copies byte-equal, paged
-               attention within phase 3's bound; their launches),
+               ``scripts/torch_dev_kernels.py`` (paged attention in the
+               reference's own case, fp32 at head_dim 64, per-block and
+               grouped copies at ``scripts/dev_kernels.py``'s sizes, each
+               against its plain version: copies byte-equal, paged
+               attention within 1e-5; their launches),
                ``torch_dev_engine.py 20`` (sim mode, four policies, the
                same tokens each) and ``torch_dev_smoke.py`` (the ten smoke
                archs' forward, train step, prefill and 3 decode steps).
@@ -378,7 +407,8 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                on qwen2-1.5b at full width (exit 0: fslint's static FS002
                degrees for all five rows, and the live counts of the
                decode step's graphs and of the swap, insert and chunk
-               sites' padded shape keys within their bounds); and on a (1, 1)
+               sites' padded shape keys within their bounds; the two CLI
+               runs at once); and on a (1, 1)
                host mesh, qwen2-1.5b's train step (B 8 x T 128) and its
                contiguous-cache decode step (B 8 against 128 positions):
                the dry-run's argument bytes equal to the real steps'
@@ -421,6 +451,9 @@ SEED = 0
 # 64-token tile (a change of several percent there) fails.  Held per
 # element as |out - ref| <= ATTN_ATOL + ATTN_RTOL * |ref|.
 ATTN_ATOL, ATTN_RTOL = 1e-3, 2 ** -7
+# fp32 outputs (the fp32 kernel): exact fp32 products summed in other
+# orders, as tests/test_kernels.py holds the reference's fp32 sweep
+ATTN_F32_TOL = 1e-5
 # the SSD scan's bf16 y: one bf16 ulp as above (ATTN_RTOL) over fp32 sums
 # in other orders, with a floor for values near 0 (measured on an H100 at
 # zamba2-7b's shapes: max abs error 0.03125, one ulp at |y| in [4, 8)); its
@@ -655,20 +688,21 @@ def bound_ms(nbytes: float, flops: float):
 
 
 def attention_case(B: int, n_pages: int, device, seed: int, Hq=12, Hkv=2,
-                   D=128, bs=16, ctx_range=None):
-    """Paged-attention inputs at qwen2-1.5b's head shape: contexts spread
-    over 1..n_pages*bs, row 0 with ctx 0 (the uniform mean of V) and the
-    last row a freed decode row (trash page, ctx 1); or, given
-    ``ctx_range`` (lo, hi), contexts spread evenly over it and no such
-    rows, as the engine's decode batch holds them."""
+                   D=128, bs=16, ctx_range=None, dtype=None):
+    """Paged-attention inputs at qwen2-1.5b's head shape (bf16 unless
+    ``dtype``): contexts spread over 1..n_pages*bs, row 0 with ctx 0 (the
+    uniform mean of V) and the last row a freed decode row (trash page,
+    ctx 1); or, given ``ctx_range`` (lo, hi), contexts spread evenly over
+    it and no such rows, as the engine's decode batch holds them."""
     import numpy as np
     import torch
+    dtype = dtype or torch.bfloat16
     rng = np.random.default_rng(seed)
     nb = B * n_pages + 2
     g = torch.Generator(device=device).manual_seed(seed)
-    q = torch.randn((B, Hq, D), generator=g, device=device).bfloat16()
-    k = torch.randn((nb, bs, Hkv, D), generator=g, device=device).bfloat16()
-    v = torch.randn((nb, bs, Hkv, D), generator=g, device=device).bfloat16()
+    q = torch.randn((B, Hq, D), generator=g, device=device).to(dtype)
+    k = torch.randn((nb, bs, Hkv, D), generator=g, device=device).to(dtype)
+    v = torch.randn((nb, bs, Hkv, D), generator=g, device=device).to(dtype)
     bt = rng.permutation(nb - 1)[:B * n_pages].reshape(B, n_pages)
     if ctx_range is not None:
         ctx = np.linspace(*ctx_range, B).astype(np.int64)
@@ -691,7 +725,8 @@ def attention_work(case):
     npad = -(-case["n_pages"] // case["ppcb"]) * case["ppcb"]
     tokens = [c if c > 0 else npad * bs for c in case["ctx"].tolist()]
     walked = sum(min(t, npad * bs) for t in tokens)
-    nbytes = (walked * Hkv * D * 2 * 2 + 2 * B * Hq * D * 2
+    size = case["q"].element_size()
+    nbytes = (walked * Hkv * D * size * 2 + 2 * B * Hq * D * size
               + case["bt"].numel() * 4 + B * 4)
     flops = 4 * walked * Hq * D               # QK^T and PV, 2 per MAC
     return nbytes, flops
@@ -699,15 +734,19 @@ def attention_work(case):
 
 def attention_error(out, ref, what: str = "paged_attention") -> float:
     """Max abs error of ``out`` against ``ref``; raises where an element
-    is off by more than ATTN_ATOL + ATTN_RTOL * |ref|."""
+    is off by more than ATTN_ATOL + ATTN_RTOL * |ref| (bf16), or
+    ATTN_F32_TOL * (1 + |ref|) (fp32)."""
+    import torch
+    atol, rtol = ((ATTN_F32_TOL, ATTN_F32_TOL) if out.dtype == torch.float32
+                  else (ATTN_ATOL, ATTN_RTOL))
     out, ref = out.float(), ref.float()
     diff = (out - ref).abs()
-    excess = float((diff - ATTN_RTOL * ref.abs()).max())
+    excess = float((diff - rtol * ref.abs()).max())
     err = float(diff.max())
-    if not (math.isfinite(err) and excess <= ATTN_ATOL):
+    if not (math.isfinite(err) and excess <= atol):
         raise AssertionError(f"{what}: max abs error {err}, an "
-                             f"element {excess} above {ATTN_RTOL} * |ref| "
-                             f"(allowed {ATTN_ATOL})")
+                             f"element {excess} above {rtol} * |ref| "
+                             f"(allowed {atol})")
     return err
 
 
@@ -1995,13 +2034,15 @@ def threefry_on_card_equals_cpu(device, n_rows: int = 8,
 # ---------------------------------------------------------------------------
 
 
-def run_launcher(args, out_dir: Path, timeout: float = 600.0) -> dict:
+def run_launcher(args, out_dir: Path, timeout: float = 600.0,
+                 tag: str = "") -> dict:
     """``python -m repro_torch.launch.serve ARGS --out OUT`` from the
-    checkout's root; raises on a non-zero exit.  Returns {"results": the
-    --out JSON, "wall_s": the subprocess's wall seconds, "stdout": its
-    output lines}."""
+    checkout's root (OUT named by ``tag`` where launchers run at once);
+    raises on a non-zero exit.  Returns {"results": the --out JSON,
+    "wall_s": the subprocess's wall seconds, "stdout": its output
+    lines}."""
     import os
-    out = out_dir / f"serve_{len(list(out_dir.iterdir()))}.json"
+    out = out_dir / f"serve_{tag or len(list(out_dir.iterdir()))}.json"
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     cmd = [sys.executable, "-m", "repro_torch.launch.serve", *args,
@@ -2017,20 +2058,29 @@ def run_launcher(args, out_dir: Path, timeout: float = 600.0) -> dict:
             "stdout": proc.stdout.splitlines()}
 
 
+def serve_online(out_dir: Path, device: str = "cuda") -> dict:
+    """The launcher's online smoke at full width on ``device`` (the
+    reduced model on the CPU), its event log in ``out_dir``: the
+    ``run_launcher`` record."""
+    return run_launcher(["--online", "--real", "--smoke", "--device", device,
+                         "--events", str(out_dir / "online_events.jsonl")],
+                        out_dir, tag="online")
+
+
 def serve_phase(out_dir: Path, device: str = "cuda",
-                conversations: int = 8) -> dict:
+                conversations: int = 8, online=None) -> dict:
     """The launcher's replay of ``conversations`` under both policies and
-    its online smoke, each at full width on ``device`` (the reduced model
-    on the CPU); the online event log passes ``validate_event_log``.
-    Returns what the ``serve`` line prints."""
+    its online smoke (``serve_online``, or its record ``online`` run
+    earlier into ``out_dir``), each at full width on ``device`` (the
+    reduced model on the CPU); the online event log passes
+    ``validate_event_log``.  Returns what the ``serve`` line prints."""
     from repro_torch.launch.serve import validate_event_log
     replay = run_launcher(["--arch", ARCH, "--real", "--device", device,
                            "--policy", "vllm", "--policy", "fastswitch",
-                           "--conversations", str(conversations)], out_dir)
-    events = out_dir / "online_events.jsonl"
-    online = run_launcher(["--online", "--real", "--smoke", "--device",
-                           device, "--events", str(events)], out_dir)
-    n_events = validate_event_log(str(events))
+                           "--conversations", str(conversations)], out_dir,
+                          tag="replay")
+    online = online or serve_online(out_dir, device)
+    n_events = validate_event_log(str(out_dir / "online_events.jsonl"))
     keep = {"total_tokens": "total_tokens", "preemptions": "preemptions",
             "callstack_wall_s": "callstack_wall_s", "ops_in": "swaps_in",
             "ops_out": "swaps_out", "blocks_in": "blocks_in",
@@ -2315,12 +2365,17 @@ def prefix_phase(bundle, out_dir: Path, device: str = "cuda") -> dict:
     equal, or
     the first difference a near-tie under the dense forward of
     ``bundle`` (the launcher's weights: the same seed)."""
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.launch.serve import validate_event_log
     events = out_dir / "prefix_events.jsonl"
     args = ["--online", "--real", "--smoke", "--device", device]
-    on = run_launcher([*args, "--prefix-cache", "--events", str(events)],
-                      out_dir)
-    off = run_launcher([*args, "--system-prompt"], out_dir)
+    # the two launchers at once: each is a subprocess, mostly its start-up
+    with ThreadPoolExecutor(2) as pool:
+        on = pool.submit(run_launcher, [*args, "--prefix-cache", "--events",
+                                        str(events)], out_dir, tag="on")
+        off = pool.submit(run_launcher, [*args, "--system-prompt"], out_dir,
+                          tag="off")
+        on, off = on.result(), off.result()
     r = on["results"]
     if not (r["prefix_hits"] > 0 and r["prefix_tokens_saved"] > 0
             and r["invariant_checks"] > 0):
@@ -3081,13 +3136,14 @@ def full_precision():
 
 
 def ladder_run(bundle, convs, sizes: dict, policy: str,
-               watch: bool = False) -> tuple:
+               watch: bool = False, on_engine=None) -> tuple:
     """One engine run of ``policy`` on ``bundle`` with swap tasks held to
     the simulated clock (so a policy's runs repeat), the serving kernels'
     launch counts set to 0 just before; with ``watch``, every swap held
-    byte for byte (``watch_moved_kv``).  The run must finish every turn,
-    swap both ways, retry and fail no copy, leak nothing and, on CUDA,
-    launch every serving kernel.  Returns (engine, its record)."""
+    byte for byte (``watch_moved_kv``); ``on_engine`` is called with the
+    engine before it runs.  The run must finish every turn, swap both
+    ways, retry and fail no copy, leak nothing and, on CUDA, launch every
+    serving kernel.  Returns (engine, its record)."""
     from repro_torch.kernels import block_copy as bc
     from repro_torch.kernels import launches
     from repro_torch.kernels import paged_attention as pa
@@ -3095,13 +3151,17 @@ def ladder_run(bundle, convs, sizes: dict, policy: str,
                "block_gather_runs": bc.block_gather_runs,
                "block_scatter_runs": bc.block_scatter_runs}
     moved = {}
+
+    def prepare(e):
+        if watch:
+            moved.update(blocks=watch_moved_kv(e.pools))
+        if on_engine is not None:
+            on_engine(e)
     launches.reset(*kernels.values())
     t0 = time.perf_counter()
     with swaps_follow_the_clock() as hold:
         eng, wall, host, swaps = run_engine(
-            bundle, convs, policy=policy, **sizes,
-            on_engine=(lambda e: moved.update(
-                blocks=watch_moved_kv(e.pools))) if watch else None)
+            bundle, convs, policy=policy, **sizes, on_engine=prepare)
     setup_s = time.perf_counter() - t0 - wall
     launched = {k: w.launches for k, w in kernels.items()}
     checked = check_engine(eng, convs, swaps, every_conv_swapped=False)
@@ -3206,27 +3266,82 @@ def ladder_tokens(bundle, convs, hists: dict) -> dict:
             "tolerance": max(NEAR_TIE, spread)}
 
 
+# the profiled fastswitch run's window, engine iterations [first, last)
+# of its ~115: stopping a profile of the whole run (~309,000 device
+# events) took most of 21-35 s, and of iterations 30-69 (118,047 events)
+# ~13 s, on an H100; this window, mid-run, holds decode steps of both
+# turns, prefill chunks and swaps
+PROFILE_WINDOW = (40, 55)
+
+
+def profile_window(eng, prof, window, sync) -> dict:
+    """Wrap ``eng.step`` so that ``prof`` (``start`` / ``stop``) records
+    the engine iterations [first, last) of ``window``: started just
+    before iteration first, stopped just after iteration last - 1, each
+    behind ``sync()``.  Returns a dict filled as the engine runs: the
+    window's host seconds (``wall_s``) and iterations recorded, and
+    ``close``, which stops a window the run ended inside (a no-op
+    otherwise)."""
+    first, last = window
+    real = eng.step
+    win = {"wall_s": None, "iterations": 0, "n": 0, "t0": None}
+
+    def close():
+        if win["t0"] is None or win["wall_s"] is not None:
+            return
+        sync()
+        win["wall_s"] = time.perf_counter() - win["t0"]
+        win["iterations"] = win["n"] - first
+        prof.stop()
+
+    def step():
+        if win["n"] == first:
+            sync()
+            prof.start()
+            win["t0"] = time.perf_counter()
+        real()
+        win["n"] += 1
+        if win["n"] == last:
+            close()
+    eng.step = step
+    win["close"] = close
+    return win
+
+
 def profile_idle(bundle, convs, sizes: dict) -> dict:
     """One more run of fastswitch (``ladder_run``) with the device's
-    activity recorded by ``torch.profiler``: the share of its wall time in
-    which the device ran nothing (its kernels and copies merged into busy
+    activity in iterations ``PROFILE_WINDOW`` recorded by
+    ``torch.profiler`` (``profile_window``): the share of the window's
+    wall time in which
+    the device ran nothing (its kernels and copies merged into busy
     intervals; the profiler slows the host, so an upper bound).  Read
-    from the profiler's raw events: building ``prof.events()`` for the
+    from the profiler's raw events: building ``prof.events()`` for a
     run's ~300,000 device operations takes tens of seconds.  Where the
     profiler gives no device event, the share is None."""
+    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        eng, rec = ladder_run(bundle, convs, sizes, "fastswitch")
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    held = {}
+
+    def on_engine(e):
+        held["win"] = profile_window(e, prof, PROFILE_WINDOW,
+                                     torch.cuda.synchronize)
+    eng, rec = ladder_run(bundle, convs, sizes, "fastswitch",
+                          on_engine=on_engine)
+    win = held["win"]
+    win["close"]()
     eng.shutdown()
     spans = [(e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3)
              for e in prof.profiler.kineto_results.events()
              if e.device_type() == DeviceType.CUDA]
     busy = busy_seconds(spans) if spans else None
     return {"policy": "fastswitch", "wall_s": rec["wall_s"],
-            "device_busy_s": busy,
-            "device_idle_share": (1.0 - busy / rec["wall_s"]
+            "window": list(PROFILE_WINDOW),
+            "window_iterations": win["iterations"],
+            "window_wall_s": win["wall_s"], "device_busy_s": busy,
+            "device_idle_share": (1.0 - busy / win["wall_s"]
                                   if spans else None),
             "device_ops": len(spans),
             "seconds": time.perf_counter() - t0}
@@ -3240,8 +3355,9 @@ def ladder_phase(bundle, convs, sizes: dict) -> dict:
     process's one-time costs), then the timed run, whose tokens must
     equal the watched run's; both finish every turn, swap both ways,
     retry and fail no copy, leak nothing and launch every serving
-    kernel.  On CUDA, one more fastswitch run under ``torch.profiler``
-    gives the device's idle share.  Then (``ladder_tokens``) every
+    kernel.  On CUDA, one more fastswitch run, iterations
+    ``PROFILE_WINDOW`` of it under ``torch.profiler``, gives the device's
+    idle share.  Then (``ladder_tokens``) every
     greedy token is the fp32 dense argmax or within max(NEAR_TIE, the
     spread of the bf16 and fp32 dense forwards), at least
     ``LADDER_NEAR_TIE_SHARE`` of each policy's tokens within NEAR_TIE,
@@ -3310,6 +3426,245 @@ def ladder_phase(bundle, convs, sizes: dict) -> dict:
             "dense_spread": toks["spread"], "tolerance": tol,
             "dense_reference": "fp32 forward of the bf16 weights",
             "dense_check_s": toks["dense_check_s"], "profiled": profiled}
+
+
+# ---------------------------------------------------------------------------
+# phase 5r: the reference's real-mode configs on the card
+# ---------------------------------------------------------------------------
+
+# the archs the paged path serves (``supports_paged``) at their reduced
+# configs, the models the reference's real mode serves: d_model 256, 2
+# layers, 4 query heads of 64 over 2 KV heads (olmoe's 4 / 4, 4 experts)
+REDUCED_ARCHS = ("qwen2-1.5b", "olmoe-1b-7b", "llama3.2-3b",
+                 "mistral-nemo-12b", "llava-next-mistral-7b")
+REDUCED_POLICIES = ("vllm", "fastswitch")
+REDUCED_SMOKE_ARCH = "qwen2-1.5b"
+
+
+def reduced_bundles(arch: str, device) -> tuple:
+    """(card bundle, CPU bundle) of ``arch``'s reduced config: bf16
+    serving weights drawn once from SEED on the CPU, then copied to
+    ``device``, so both runs hold the same bits."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import tree_map
+    cfg = get_smoke_config(arch)
+    params = T.init_params(cfg, seed=SEED, device="cpu", serving=True)
+    return ({"cfg": cfg, "params": tree_map(lambda t: t.to(device), params)},
+            {"cfg": cfg, "params": params})
+
+
+@contextlib.contextmanager
+def engine_gaps():
+    """Within the block, every engine call that produces a token records
+    its gaps as the engine computed them (eager calls: a CPU run): a
+    decode step's row its top-2 logit gap and its least routing gap (the
+    K-th to (K+1)-th router probability over the layers; inf without a
+    MoE), a prefill chunk its last logits' top-2 gap and the least
+    routing gap over the chunk's positions.  Yields {the tokens before
+    the produced token: (logit gap, routing gap)}, the least over the
+    calls that produced it."""
+    import torch
+    from repro_torch.core import decode_runner as dr
+    from repro_torch.models import moe, paged
+    calls, seen = {}, {"gaps": [], "logits": None}
+    real_route, real_sample = moe.route, paged.sample_tokens
+    real_stage = dr.DecodeRunner._stage_tokens
+    real_compute = dr.DecodeRunner.prefill_chunk_compute
+
+    def top2(logits) -> float:
+        top = torch.topk(logits.float(), 2).values
+        return float(top[0] - top[1])
+
+    def routing(n: int):
+        gaps = seen["gaps"]
+        seen["gaps"] = []
+        if not gaps:
+            return torch.full((n,), math.inf)
+        return torch.stack(gaps).min(dim=0).values
+
+    def note(key, logit_gap: float, route_gap: float) -> None:
+        old = calls.get(key, (math.inf, math.inf))
+        calls[key] = (min(old[0], logit_gap), min(old[1], route_gap))
+
+    def route(router, xf, m):
+        plan = real_route(router, xf, m)
+        top = torch.sort(plan.probs, dim=-1, descending=True).values
+        seen["gaps"].append((top[:, m.top_k - 1] - top[:, m.top_k]).cpu())
+        return plan
+
+    def sample_tokens(logits, *a, **k):
+        seen["logits"] = logits
+        return real_sample(logits, *a, **k)
+
+    def stage(runner, nxt, rows_hist):
+        gaps = routing(seen["logits"].shape[0])
+        for row, hist in rows_hist:
+            note(tuple(hist), top2(seen["logits"][row]), float(gaps[row]))
+        return real_stage(runner, nxt, rows_hist)
+
+    def compute(runner, rid, n_tokens):
+        st = runner._prefills[rid]
+        pos, toks = st.pos, list(st.toks)
+        seen["gaps"] = []
+        out = real_compute(runner, rid, n_tokens)
+        if n_tokens > 0:
+            gaps = routing(n_tokens)
+            note(tuple(toks[:pos + n_tokens]), top2(st.last_logits),
+                 float(gaps[:n_tokens].min()))
+        return out
+    moe.route, paged.sample_tokens = route, sample_tokens
+    dr.DecodeRunner._stage_tokens = stage
+    dr.DecodeRunner.prefill_chunk_compute = compute
+    try:
+        yield calls
+    finally:
+        moe.route, paged.sample_tokens = real_route, real_sample
+        dr.DecodeRunner._stage_tokens = real_stage
+        dr.DecodeRunner.prefill_chunk_compute = real_compute
+
+
+def reduced_gate(card: dict, cpu: dict) -> dict:
+    """One policy's card run against its CPU run (``card`` / ``cpu``:
+    {"hists": {conv: history}, "rec": ``ladder_run``'s record, "on_card":
+    bool}, the CPU's also "gaps", its ``engine_gaps``): swap ops and
+    blocks each way equal (both runs held to the simulated clock); every
+    stream equal, or first parting at a token whose CPU engine call had a
+    top-2 logit gap under NEAR_TIE or, in a MoE, a routing gap under
+    ROUTE_TIE (an expert flipped there moves the hidden state by a whole
+    expert's output, which no logit bound covers); on the card, paged
+    attention launched.  Returns the record, the partings as (conv,
+    position, logit gap, routing gap or None without a MoE); raises
+    ``AssertionError`` at the first miss."""
+    for key in ("swap_ops", "blocks_moved"):
+        if card["rec"][key] != cpu["rec"][key]:
+            raise AssertionError(f"{key}: card {card['rec'][key]}, CPU "
+                                 f"{cpu['rec'][key]}")
+    if set(card["hists"]) != set(cpu["hists"]):
+        raise AssertionError("the runs served other conversations")
+    parts = []
+    for cid, want in sorted(cpu["hists"].items()):
+        got = card["hists"][cid]
+        at = next((i for i, (x, y) in enumerate(zip(got, want)) if x != y),
+                  None)
+        if at is None:
+            if len(got) != len(want):
+                raise AssertionError(f"conv {cid}: {len(got)} tokens on the "
+                                     f"card, {len(want)} on the CPU")
+            continue
+        gaps = cpu["gaps"].get(tuple(want[:at]))
+        if gaps is None:
+            raise AssertionError(f"conv {cid}: no CPU engine call produced "
+                                 f"position {at}")
+        if not (gaps[0] < NEAR_TIE or gaps[1] < ROUTE_TIE):
+            raise AssertionError(f"conv {cid}: the card's stream parts from "
+                                 f"the CPU's at {at}, where the CPU's "
+                                 f"logit gap is {gaps[0]} (>= {NEAR_TIE}) "
+                                 f"and its routing gap {gaps[1]} (>= "
+                                 f"{ROUTE_TIE})")
+        parts.append([cid, at, gaps[0],
+                      gaps[1] if math.isfinite(gaps[1]) else None])
+    launched = card["rec"]["launches"]
+    if card["on_card"] and launched["paged_attention"] <= 0:
+        raise AssertionError(f"paged attention never launched: {launched}")
+    return {"swap_ops": card["rec"]["swap_ops"],
+            "blocks_moved": card["rec"]["blocks_moved"],
+            "streams_equal": len(cpu["hists"]) - len(parts),
+            "parting_at": parts, "launches": launched,
+            "moved_kv_blocks_checked": {
+                "card": card["rec"]["moved_kv_blocks_checked"],
+                "cpu": cpu["rec"]["moved_kv_blocks_checked"]},
+            "wall_s": {"card": card["rec"]["wall_s"],
+                       "cpu": cpu["rec"]["wall_s"]}}
+
+
+def reduced_cpu_run(arch: str, policy: str, convs, sizes: dict) -> dict:
+    """``arch``'s reduced config under ``policy`` on the CPU
+    (``reduced_bundles``' CPU bundle; ``ladder_run`` with every staged
+    swap held byte for byte), its engine gaps recorded (``engine_gaps``),
+    at one PyTorch thread (a worker process beside others): the run as
+    ``reduced_gate`` takes it."""
+    import torch
+    torch.set_num_threads(1)
+    _, cpu_b = reduced_bundles(arch, "cpu")
+    with engine_gaps() as gaps:
+        eng, rec = ladder_run(cpu_b, convs, sizes, policy, watch=True)
+    eng.shutdown()
+    return {"hists": dict(eng._token_hist_by_conv), "rec": rec,
+            "gaps": dict(gaps), "on_card": False}
+
+
+def reduced_phase(device, out_dir: Path, archs=REDUCED_ARCHS) -> dict:
+    """The reference's real-mode models on ``device``: each arch of
+    ``archs`` at its reduced config (head_dim 64) through the engine
+    phase's workload and pool under REDUCED_POLICIES, each run held by
+    ``reduced_gate`` to the same run on the CPU with the same weights
+    (``reduced_bundles``); the CPU runs go in worker processes
+    (``reduced_cpu_run``, one PyTorch thread each) while this process
+    makes the device's runs, each a fresh engine, every staged swap held
+    byte for byte.  Beside them, the reference's tier-1 real smoke
+    through the launcher, ``--online --smoke --real --device cuda
+    --reduced`` (exit 0 with its drain and token assertions, paged
+    attention launched); on the CPU the smoke is ``--device cpu``."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+    convs = conversations(8, (256, 288, 320, 352), (96, 128, 160),
+                          max_tokens=32)
+    sizes = dict(gpu_blocks=160, cpu_blocks=1024, max_running=8)
+    on_card = str(device).startswith("cuda")
+    argv = ["--online", "--smoke", "--real", "--arch", REDUCED_SMOKE_ARCH]
+    argv += ["--device", "cuda", "--reduced"] if on_card else \
+        ["--device", "cpu"]
+    t0 = time.perf_counter()
+    archs_out = {}
+    # the launcher's smoke (a subprocess, mostly its start-up) and the
+    # CPU runs (a worker process a run, each ~6-13 s at one thread on the
+    # chip's host) run beside the card's runs
+    with ThreadPoolExecutor(1) as waiter, ProcessPoolExecutor(
+            len(archs) * len(REDUCED_POLICIES),
+            multiprocessing.get_context("spawn")) as pool:
+        smoke_run = waiter.submit(run_launcher, argv, out_dir)
+        cpu_runs = {(arch, pol): pool.submit(reduced_cpu_run, arch, pol,
+                                             convs, sizes)
+                    for arch in archs for pol in REDUCED_POLICIES}
+        for arch in archs:
+            t1 = time.perf_counter()
+            card_b, cpu_b = reduced_bundles(arch, device)
+            cfg = cpu_b["cfg"]
+            out = {"head_dim": cfg.head_dim, "n_heads": cfg.n_heads,
+                   "n_kv_heads": cfg.n_kv_heads, "d_model": cfg.d_model,
+                   "n_layers": cfg.n_layers}
+            card = {}
+            for pol in REDUCED_POLICIES:
+                eng, rec = ladder_run(card_b, convs, sizes, pol, watch=True)
+                card[pol] = {"hists": dict(eng._token_hist_by_conv),
+                             "rec": rec, "on_card":
+                                 card_b["params"]["embed"]["table"].is_cuda}
+                eng.shutdown()
+                del eng
+                gc.collect()
+            card_s = time.perf_counter() - t1
+            for pol in REDUCED_POLICIES:
+                out[pol] = reduced_gate(card[pol],
+                                        cpu_runs[arch, pol].result())
+            out.update(card_seconds=card_s,
+                       seconds=time.perf_counter() - t1)
+            archs_out[arch] = out
+            print(json.dumps({"reduced_arch": arch, **out}),
+                  file=sys.stderr, flush=True)
+        smoke = smoke_run.result()
+    launched = smoke["results"]["kernel_launches"]
+    if on_card and launched["paged_attention"] <= 0:
+        raise AssertionError(f"the launcher's reduced smoke never launched "
+                             f"paged attention: {launched}")
+    return {"archs": archs_out, "policies": list(REDUCED_POLICIES),
+            "near_tie": NEAR_TIE, "route_tie": ROUTE_TIE,
+            "launcher_smoke": {"argv": argv, "wall_s": smoke["wall_s"],
+                               "total_tokens":
+                                   smoke["results"]["total_tokens"],
+                               "kernel_launches": launched,
+                               "stdout": smoke["stdout"][-3:]},
+            "seconds": time.perf_counter() - t0}
 
 
 # ---------------------------------------------------------------------------
@@ -6097,8 +6452,12 @@ def dryrun_phase(device, bg, out_dir: Path) -> dict:
     for r in ok:
         for k, v in {**r["fallbacks"], **r["decomposed"]}.items():
             fallbacks[k] = fallbacks.get(k, 0) + v
-    serving = dryrun_serving()
-    audit = dryrun_audit()
+    # the two CLI runs at once (counts, no times); the cross-check, which
+    # times a step, after them
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(2) as pool:
+        serving, audit = pool.submit(dryrun_serving), pool.submit(dryrun_audit)
+        serving, audit = serving.result(), audit.result()
     cross = dryrun_cross_check(device, out_dir)
     return {"all": {**{k: v for k, v in counts.items()
                        if k != "skipped_cases"},
@@ -6132,6 +6491,13 @@ def main() -> int:
               "NVIDIA GPU", file=sys.stderr)
         return 2
 
+    # the kernels build (nvcc needs no card) while phase 1 starts CUDA
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    build_pool = ThreadPoolExecutor(1)
+    building = build_pool.submit(build.build)
+
     # 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -6145,12 +6511,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # 2. build
+    # 2. build (started beside phase 1's CUDA start-up)
     from repro_torch.kernels import block_copy as bc
-    from repro_torch.kernels import build
     from repro_torch.kernels import paged_attention as pa
-    t0 = time.perf_counter()
-    built = build.build()
+    built = building.result()
+    build_pool.shutdown()
     emit("build", seconds=time.perf_counter() - t0,
          sources={k: {"seconds": r.seconds, "ptxas": r.ptxas}
                   for k, r in built.items()})
@@ -6177,14 +6542,29 @@ def main() -> int:
     g1_case = attention_case(8, 64, dev, seed=2, ctx_range=(256, 600),
                              Hq=16, Hkv=16)
     attn["B8_pages64_g1"] = (g1_case, check_attention(g1_case))
+    # the kernels' domain past the served D 128: the B 32 x 128 pages
+    # shape at D 64 in bf16 and in fp32 (the fp32 kernel), at D 256, and
+    # at a GQA group of 16 (Hq 32 / Hkv 2: two head tiles) at D 128
+    domain_cases = {}
+    for n, (k, kw) in enumerate((("D64", dict(D=64)),
+                                 ("D64_fp32", dict(D=64,
+                                                   dtype=torch.float32)),
+                                 ("D256", dict(D=256)),
+                                 ("group16", dict(Hq=32, Hkv=2)))):
+        case = attention_case(32, 128, dev, seed=3 + n, **kw)
+        attn[f"B32_pages128_{k}"] = (case, check_attention(case))
+        domain_cases[k] = case
     timed = attn["B32_pages128"][0]
     a_times = time_attention(timed, flush)
     a_bytes, a_flops = attention_work(timed)
     a_engine_times = time_attention(engine_case, flush)
     a_g1_times = time_attention(g1_case, flush)
+    a_domain_times = {k: time_attention(c, flush)
+                      for k, c in domain_cases.items()}
     a_bounds = {k: bound_ms(*attention_work(attn[k][0]))[0]
                 for k in ("B32_pages128", "B8_pages64_ctx256_600",
-                          "B8_pages64_g1")}
+                          "B8_pages64_g1",
+                          *(f"B32_pages128_{k}" for k in domain_cases))}
     copies = copy_case(dev, seed=1)
     slab, dst_runs = check_copies(copies)
     gather_t, scatter_t, c_bytes = time_copies(copies, dst_runs, flush)
@@ -6211,6 +6591,8 @@ def main() -> int:
     all_timed = {"paged_attention_B32_pages128": a_times,
                  "paged_attention_B8_pages64": a_engine_times,
                  "paged_attention_B8_pages64_g1": a_g1_times,
+                 **{f"paged_attention_B32_pages128_{k}": t
+                    for k, t in a_domain_times.items()},
                  "block_gather_runs": gather_t,
                  "block_scatter_runs": scatter_t,
                  "block_gather_runs_olmoe": moe_gather_t,
@@ -6222,7 +6604,8 @@ def main() -> int:
     emit("kernels",
          paged_attention={k: err for k, (_, err) in attn.items()},
          paged_attention_bound_ms=a_bounds,
-         attention_tolerance={"atol": ATTN_ATOL, "rtol": ATTN_RTOL},
+         attention_tolerance={"atol": ATTN_ATOL, "rtol": ATTN_RTOL,
+                              "fp32": ATTN_F32_TOL},
          run_copies="byte-equal with their plain versions, at qwen2-1.5b's "
                     "pool (56 planes of 8 KB rows) and olmoe-1b-7b's (32 "
                     "planes of 64 KiB rows)",
@@ -6309,6 +6692,12 @@ def main() -> int:
          a10_modelled_p99_tbt_ms=summ["p99_tbt_ms"],
          a10_modelled_throughput_tok_s=summ["throughput_tok_s"])
 
+    # 5d's online smoke, a subprocess at full width, runs beside the
+    # untimed checks of phases 5 and 5a and is read in 5d
+    serve_dir = tempfile.TemporaryDirectory()
+    online_bg = ThreadPoolExecutor(1)
+    online_run = online_bg.submit(serve_online, Path(serve_dir.name))
+
     # 5. e2e: every conversation, each swapped out and back in above
     per_conv = [check_tokens(eng, bundle, c) for c in convs]
     emit("e2e", generated=sum(r["generated"] for r in per_conv),
@@ -6321,6 +6710,8 @@ def main() -> int:
     # prefill_kv + write_tokens + paged_decode_step
     emit("oracle", **check_oracle(eng, bundle, convs))
     del eng
+    online = online_run.result()
+    online_bg.shutdown()
 
     # 5b. sampling: half the batch sampled; its first run holds each new
     # variant's first replay against the eager step
@@ -6373,8 +6764,9 @@ def main() -> int:
     del s_eng, again, plain
 
     # 5d. the launcher, at full width, in subprocesses
-    with tempfile.TemporaryDirectory() as tmp:
-        emit("serve", nvidia_smi=smi[0], **serve_phase(Path(tmp)))
+    emit("serve", nvidia_smi=smi[0],
+         **serve_phase(Path(serve_dir.name), online=online))
+    serve_dir.cleanup()
 
     # 5e. the network front-end over two replicas on the card, then the
     # launcher's --serve --router 2 in a subprocess
@@ -6394,6 +6786,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         ctl = control_phase(bundle, convs, sizes, Path(tmp))
     emit("control", nvidia_smi=smi[0], **ctl)
+
+    # 5r. the reference's real-mode models: the five paged archs' reduced
+    # configs (head_dim 64) on the card, each run held to the same run on
+    # the CPU (worker processes), beside the launcher's reduced online
+    # smoke
+    with tempfile.TemporaryDirectory() as tmp:
+        red = reduced_phase(dev, Path(tmp))
+    emit("reduced", nvidia_smi=smi[0], **red)
 
     # 5n. KV reuse under short host pools: the engine phase's workload
     # with 256 and 192 CPU blocks, contaminated copies resumed by
@@ -6542,6 +6942,11 @@ def main() -> int:
                    for n in REUSE_CPU_BLOCKS},
                 **{f"ladder_{LADDER_ARCH}_{pol}": r["launches"][kname]
                    for pol, r in ladder["policies"].items()},
+                **{f"reduced_{arch}_{pol}": r[pol]["launches"][kname]
+                   for arch, r in red["archs"].items()
+                   for pol in red["policies"]},
+                "reduced_launcher_smoke":
+                    red["launcher_smoke"]["kernel_launches"][kname],
                 **{f"mesh_{part}_1x{len(m['launches_per_shard'][kname])}": {
                     "total": m["launches"][kname],
                     "per_shard": m["launches_per_shard"][kname]}
@@ -6578,6 +6983,20 @@ def main() -> int:
                                       "device_ms", "library_device_ms",
                                       "device_ms_by",
                                       "library_device_ms_by")}}
+    # paged attention across its domain, B 32 x 128 pages
+    rows[0]["domain_B32_pages128"] = {}
+    for k, c in domain_cases.items():
+        d_bound, d_by = bound_ms(*attention_work(c))
+        t = a_domain_times[k]
+        rows[0]["domain_B32_pages128"][k] = {
+            "head_dim": c["q"].shape[-1], "dtype": str(c["q"].dtype),
+            "heads": [c["q"].shape[1], c["k"].shape[2]],
+            "max_abs_err": attn[f"B32_pages128_{k}"][1],
+            "bound_ms": d_bound, "bound_by": d_by,
+            "bound_share": d_bound / t["device_ms"],
+            **{x: t[x] for x in ("ms", "plain_ms", "library_ms",
+                                 "device_ms", "library_device_ms",
+                                 "device_ms_by", "library_device_ms_by")}}
     # the run copies at olmoe-1b-7b's pool layout, byte-equal above
     for row, t in ((rows[1], moe_gather_t), (rows[2], moe_scatter_t)):
         m_bound, m_by = bound_ms(moe_c_bytes, 0)

@@ -1,49 +1,62 @@
-// Paged decode attention under GQA, bf16 in and out, fp32 accumulation:
-// split-KV ("flash-decoding") on Hopper's tensor cores.
+// Paged decode attention under GQA, fp32 accumulation: split-KV
+// ("flash-decoding"), bf16 on Hopper's tensor cores, fp32 on the CUDA
+// cores; any GQA group.  In bf16 every head_dim D that is a multiple of 16
+// up to 256 is its own instance (its combine too); in fp32 one instance
+// serves each 32 of D (the lanes past D idle), and one combine takes D at
+// run time.
 //
 // Replaces the Pallas TPU kernel repro/kernels/paged_attention.py
 // (paged_attention -> pallas_call, body _kernel): one query token per
 // sequence attends the paged KV pool through its block-table row, with an
-// online softmax over tiles of tokens.
+// online softmax over tiles of tokens.  The TPU kernel takes any D, group
+// and dtype; so do these two kernels, within D % 16 == 0 and D <= 256.
 //
 // What bounds it on the card: HBM bytes.  Each (row, KV head) reads its
-// walked K and V once, 256 B per token each at D 128, and does ~2 * group
-// flops per byte, far below the H100's ~295 flop/byte bf16 ridge.  At
-// qwen2-1.5b's decode (B 32, 128 pages of 16, contexts 0..2048, Hq 12 /
-// Hkv 2) that is 33.8 MB, 0.0101 ms at 3.35 TB/s (published H100 SXM peak
-// at its 700 W limit; chip_smoke.py computes the bound from its inputs).
-// Reaching it takes tens of KB in flight on every SM at once, so the design
-// spreads the walk over the whole card and keeps page loads in flight:
+// walked K and V once, 2 D bytes per token each in bf16, and does ~2 *
+// group flops per byte, far below the H100's ~295 flop/byte bf16 ridge.
+// At qwen2-1.5b's decode (B 32, 128 pages of 16, contexts 0..2048, Hq 12
+// / Hkv 2, D 128) that is 33.8 MB, 0.0101 ms at 3.35 TB/s (published H100
+// SXM peak at its 700 W limit; chip_smoke.py computes the bound from its
+// inputs).  Reaching it takes tens of KB in flight on every SM at once, so
+// the design spreads the walk over the whole card and keeps page loads in
+// flight:
 //
-//   * Split-KV.  The grid is (Hkv, B, n_splits): each CTA walks one
-//     contiguous chunk of its row's padded table (a multiple of the 64-token
-//     step and of the page size).  The wrapper picks n_splits from shapes
-//     alone (B, Hkv, the padded table; kernels/paged_attention.py
-//     split_plan), aiming at two waves of three resident CTAs per SM, so
-//     no host sync reads context_lens and the launch depends only on
-//     shapes.  A CTA whose chunk starts at or past the row's walk writes
-//     an empty partial (m = -inf, l = 0) and exits; at batch 8 most CTAs
-//     of the padded table do, at the cost of a launch slot each.
-//   * Four warps per CTA, each with its own stream of 16-token sub-tiles
-//     (sub-tile j of the chunk goes to warp j % 4) and its own online
-//     softmax state, so no barrier is taken per tile: a warp waits only for
-//     its own copies.  Each warp keeps a 2-stage ring of K and V sub-tiles
-//     (8 KB a stage) in shared memory, filled by 16-byte cp.async.cg
-//     copies issued before the sub-tile in the other stage is reduced; a
-//     token's head row is 256 contiguous bytes of the (nb, bs, Hkv, D)
-//     pool, and its 16 chunks are XOR-swizzled by (row & 7) so ldmatrix
-//     reads are free of bank conflicts.  The CTA stages its chunk's
-//     block-table entries in shared memory first (the TPU kernel's scalar
-//     prefetch), with the TPU index rule applied, while ctx is read.  64
-//     KB of ring and at most 4 KB of table per CTA: three CTAs (12 warps,
-//     96 KB of copies in flight) per SM.  (A third stage allowed two CTAs
-//     per SM and left the ragged B 32 batch a second wave: ~300 live CTAs
-//     on 264 slots.)
-//   * Q.K^T on the tensor cores, tokens on M and the GQA group on N:
+//   * Split-KV.  The grid is (Hkv x head tiles, B, n_splits): each CTA
+//     walks one contiguous chunk of its row's padded table (a multiple of
+//     the 64-token step and of the page size) for up to 8 query heads of
+//     one KV head (a head tile: the mma's N; a group of 16 is two tiles,
+//     each reading the K/V once).  The wrapper picks n_splits from shapes
+//     alone (B, Hkv, head tiles, the padded table, and the CTAs resident
+//     per SM at this D and dtype; kernels/paged_attention.py split_plan),
+//     aiming at two waves of the resident CTAs, so no host sync reads
+//     context_lens and the launch depends only on shapes.  A CTA whose
+//     chunk starts at or past the row's walk writes an empty partial (m =
+//     -inf, l = 0) and exits; at batch 8 most CTAs of the padded table do,
+//     at the cost of a launch slot each.
+//   * bf16: four warps per CTA, each with its own stream of 16-token
+//     sub-tiles (sub-tile j of the chunk goes to warp j % 4) and its own
+//     online softmax state, so no barrier is taken per tile: a warp waits
+//     only for its own copies.  Each warp keeps a 2-stage ring of K and V
+//     sub-tiles in shared memory, filled by 16-byte cp.async.cg copies
+//     started before the sub-tile in the other stage is reduced; a token's
+//     head row is 2 D contiguous bytes of the (nb, bs, Hkv, D) pool, and
+//     its 16-byte chunks are XOR-swizzled by (row & 7) so ldmatrix reads
+//     are free of bank conflicts (a ring row is D rounded up to 64
+//     elements, so the swizzle stays inside it).  The CTA stages its
+//     chunk's block-table entries in shared memory first (the TPU kernel's
+//     scalar prefetch), with the TPU index rule applied, while ctx is
+//     read.  The ring is 512 bytes per element of a ring row: 32 KB at D
+//     <= 64, 64 KB at D 128, 128 KB at D 256; with at most 4 KB of table,
+//     the SM's 228 KB hold 3 CTAs at D 128 (12 warps, 96 KB of copies in
+//     flight), 1 at D 256, and at most kMaxResident, which keeps 128
+//     registers a thread.  (At D 128 a third stage allowed two CTAs per
+//     SM and left the ragged B 32 batch a second wave: ~300 live CTAs on
+//     264 slots.)
+//   * Q.K^T on the tensor cores, tokens on M and the head tile on N:
 //     S^T (16 tokens x 8 heads) = K (16 x D) . Q^T by mma.sync m16n8k16
 //     (bf16 in, fp32 accumulate; bf16 x bf16 products are exact in fp32).
 //     K is the A operand by ldmatrix straight from the ring; Q^T's B
-//     fragments are read from global once (the group of 6 padded to 8 with
+//     fragments are read from global once (a tile of 6 padded to 8 with
 //     zero rows).  The group on N wastes 2 of 8 columns where the group on
 //     M (padded to 16) would waste 10 of 16.
 //   * P.V on the tensor cores too: O^T (D x 8 heads) += V^T (D x 16
@@ -58,29 +71,38 @@
 //     terms (hi, then the residues), which carry its 24 bits, and each runs
 //     against every V fragment, smallest first: 3x the P.V products of one
 //     term, on a kernel bound by bytes.  l is summed from the fp32 p.
+//   * fp32: the same grid, partition, table staging and merges, on the
+//     CUDA cores in plain fp32 (no TF32: the reference holds fp32 to
+//     1e-5).  A warp takes 32-token sub-tiles (one token a lane: q.k of
+//     the head tile against the lane's K row, q from shared memory), one
+//     online-softmax update per sub-tile, then P.V token by token with
+//     the lanes on D (p by shuffle, each V row read coalesced).  Simple
+//     and right: it serves the reference's fp32 cases, not a model.
 //   * Deterministic combine: a CTA merges its four warps' (m, l, O) in a
-//     fixed order through shared memory; with one split it writes the bf16
+//     fixed order through shared memory; with one split it writes the
 //     output itself, else it writes the fp32 partial (m, l, un-normalised
 //     O) to a workspace the wrapper allocates, and a second small kernel,
 //     one CTA per query head, merges the splits in split order: M = max
 //     m_s, O = sum e^(m_s - M) O_s / max(sum e^(m_s - M) l_s, 1e-30),
-//     rounded to bf16 once.  No float atomics, so two launches on the same
-//     inputs are bit-equal.
+//     rounded to the output dtype once.  No float atomics, so two launches
+//     on the same inputs are bit-equal.
 //     A second launch rather than a last-CTA ticket: a ticket needs a
 //     zeroed counter that outlives the call (shared by every stream) or a
 //     memset per call, itself a launch; the decode step is host-bound.
 //
-// Registers: 150 a thread in the split kernel (O^T is 32 fp32, Q^T's
-// fragments 16), 32 in the combine, no spills (chip_smoke.py prints ptxas
-// -v).  On an H100 80GB HBM3 at 700 W (chip_smoke.py) the pair takes
-// 0.027 ms at B 32 x 128 pages, 37 % of its bound, and 0.010 ms at the
-// engine's B 8 x 64 pages, where the bound is 0.001 ms and the chain of
-// dependent loads (ctx and table, then K/V, then the partials) and two
-// launches set the time.  Next steps: a device-built list of the live
-// (row, chunk) pairs instead of a dense grid whose late CTAs exit at once;
-// the combine folded into the last CTA of each row; TMA page loads through
-// mbarriers from a producer warp (one thread per 256-byte row instead of
-// sixteen); wgmma.
+// Registers at D 128 bf16: 160 a thread in the split kernel (O^T is 32
+// fp32, Q^T's fragments 16), 32 in the combine, no spills; 252 at D 256;
+// the fp32 kernel holds 128 (its bound at 4 CTAs an SM), and its
+// instances past D 32 spill 12-140 bytes a thread (chip_smoke.py prints
+// ptxas -v for every instance).  On an H100 80GB HBM3 at 700 W
+// (chip_smoke.py) the D-128 pair takes 0.027 ms at B 32 x 128 pages, 37 %
+// of its bound, and 0.010 ms at the engine's B 8 x 64 pages, where the
+// bound is 0.001 ms and the chain of dependent loads (ctx and table, then
+// K/V, then the partials) and two launches set the time.  Next steps: a
+// device-built list of the live (row, chunk) pairs instead of a dense grid
+// whose late CTAs exit at once; the combine folded into the last CTA of
+// each row; TMA page loads through mbarriers from a producer warp (one
+// thread per row instead of D / 8); wgmma.
 //
 // Semantics kept exactly from the TPU kernel:
 //   * scores are q.k in fp32 times scale; positions >= ctx inside the walk
@@ -100,23 +122,72 @@
 
 namespace {
 
-constexpr int kD = 128;                  // head_dim served (qwen2-1.5b)
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kSub = 16;                 // tokens per warp sub-tile (M)
+constexpr int kSub = 16;                 // tokens per bf16 warp sub-tile (M)
+constexpr int kSubF32 = 32;              // tokens per fp32 warp sub-tile
 constexpr int kStep = kWarps * kSub;     // tokens per CTA step; chunk unit
 constexpr int kStages = 2;               // ring depth per warp
-constexpr int kMaxGroup = 8;             // query heads per KV head (N)
+constexpr int kMaxGroup = 8;             // query heads a CTA takes (N)
 constexpr int kMaxChunkPages = 1024;     // table entries a CTA stages
 constexpr int kMaxSplits = 2048;         // the combine's m, l, w: 24 KB
-constexpr int kRowBytes = kD * 2;
-constexpr int kSubBytes = kSub * kRowBytes;                    // 4 KB
-constexpr int kRingBytes = kWarps * kStages * 2 * kSubBytes;   // 64 KB
+constexpr int kMaxD = 256;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-static_assert(kWarps * kMaxGroup * (kD + 2) * 4 <= kRingBytes,
-              "the warps' merge buffer reuses the ring");
+// CTAs resident per SM: the SM's shared memory (228 KB) over a CTA's own
+// (its buffers, at most kMaxChunkPages table entries, the 1 KB the system
+// reserves per CTA), and at most kMaxResident, where each thread keeps 128
+// registers (65536 / (4 x 128)).  kernels/paged_attention.py's
+// ctas_per_sm computes the same numbers for split_plan.
+constexpr int kSmemPerSm = 233472;
+constexpr int kSmemPerCta = 1024;
+constexpr int kMaxResident = 4;
+__host__ __device__ constexpr int resident_ctas(int smem_bytes) {
+  return kSmemPerSm / (smem_bytes + kMaxChunkPages * 4 + kSmemPerCta) <
+                 kMaxResident
+             ? kSmemPerSm / (smem_bytes + kMaxChunkPages * 4 + kSmemPerCta)
+             : kMaxResident;
+}
+
+// the warps' merge buffer: m and l of each head of the tile, then its O
+template <int kD>
+__host__ __device__ constexpr int merge_bytes() {
+  return kWarps * kMaxGroup * (kD + 2) * 4;
+}
+
+// The bf16 kernel's ring at head_dim kD: a ring row holds kD rounded up to
+// 64 elements (a multiple of 8 16-byte chunks, so the swizzle stays in the
+// row), 2 stages of K and V sub-tiles per warp.
+template <int kD>
+struct Bf16Ring {
+  static constexpr int kChunks = kD / 8;                   // 16-byte chunks
+  static constexpr int kRowChunks = (kChunks + 7) / 8 * 8; // ring row
+  static constexpr int kSubBytes = kSub * kRowChunks * 16;
+  static constexpr int kBytes = kWarps * kStages * 2 * kSubBytes;
+  static constexpr int kResident = resident_ctas(kBytes);
+  static_assert(kD % 16 == 0 && kD >= 16 && kD <= kMaxD, "head_dim");
+  static_assert(merge_bytes<kD>() <= kBytes,
+                "the warps' merge buffer reuses the ring");
+};
+
+// The fp32 kernel's shared memory at head_dim D: the head tile's q, then
+// the merge buffer.  One instance serves every D of 32 (kE - 1) < D <= 32
+// kE (kE O elements a lane); its residency is that of the largest.
+__host__ __device__ constexpr int f32_smem_bytes(int D) {
+  return kMaxGroup * D * 4 + kWarps * kMaxGroup * (D + 2) * 4;
+}
+template <int kE>
+struct F32Lanes {
+  static constexpr int kResident = resident_ctas(f32_smem_bytes(32 * kE));
+  static_assert(kE >= 1 && 32 * kE <= kMaxD, "head_dim");
+};
+
+// the combine's threads: one per output element, whole warps
+template <int kD>
+__host__ __device__ constexpr int combine_threads() {
+  return (kD + 31) / 32 * 32;
+}
 
 // The TPU index map's block for table entry `id` of a pool of nb blocks.
 __device__ __forceinline__ int block_index(int id, int nb) {
@@ -128,11 +199,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Byte offset of 16-byte chunk `c` of token row `r` in a sub-tile: the
-// chunk index XOR (r & 7), so the 8 rows an ldmatrix phase reads at one
-// logical chunk sit in 8 distinct bank groups.
+// Byte offset of 16-byte chunk `c` of token row `r` in a sub-tile of
+// kRowChunks-chunk rows: the chunk index XOR (r & 7), so the 8 rows an
+// ldmatrix phase reads at one logical chunk sit in 8 distinct bank groups.
+template <int kRowChunks>
 __device__ __forceinline__ uint32_t swz(int r, int c) {
-  return (uint32_t)(r * (kD / 8) + (c ^ (r & 7))) * 16u;
+  return (uint32_t)(r * kRowChunks + (c ^ (r & 7))) * 16u;
 }
 
 // 16 bytes global -> shared, zero-filled where `valid` is false.
@@ -207,6 +279,11 @@ __device__ __forceinline__ float exp_diff(float a, float b) {
   return exp2f((a - b) * kLog2e);   // e^(a - b); exactly 1 where a == b
 }
 
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+
 // Workspace layout for n_parts = B * Hkv * n_splits partials of G heads:
 // m [n_parts][G], l [n_parts][G], O [n_parts][G][D], all fp32.
 struct Partials {
@@ -217,7 +294,76 @@ struct Partials {
       : m(ws), l(ws + n_parts * G), o(ws + 2 * n_parts * G) {}
 };
 
-__global__ void __launch_bounds__(kThreads, 3)
+// This CTA's place in the grid: KV head h, its head tile's first query
+// head g0 (of the group) and its Gt heads, row b, split.
+struct Cta {
+  int G, h, g0, Gt, b, split, n_splits;
+  __device__ Cta(int Hq, int Hkv) {
+    G = Hq / Hkv;
+    const int n_tiles = (G + kMaxGroup - 1) / kMaxGroup;
+    h = blockIdx.x / n_tiles;
+    g0 = (blockIdx.x % n_tiles) * kMaxGroup;
+    Gt = min(kMaxGroup, G - g0);
+    b = blockIdx.y;
+    split = blockIdx.z;
+    n_splits = gridDim.z;
+  }
+};
+
+// Stage the chunk's table entries (from token c0, a multiple of bs), the
+// index rule applied; read whether or not ctx reaches them, so the reads
+// overlap ctx's.
+__device__ __forceinline__ void stage_table(int* tbl, const int* block_tables,
+                                            int b, int c0, int chunk, int bs,
+                                            int nb, int n_pages,
+                                            int n_pages_padded) {
+  const int p0 = c0 / bs;
+  const int n_cp = min(chunk / bs, n_pages_padded - p0);
+  const int* bt = block_tables + (size_t)b * n_pages;
+  for (int i = threadIdx.x; i < n_cp; i += kThreads) {
+    const int page = p0 + i;
+    tbl[i] = block_index(page < n_pages ? bt[page] : 0, nb);
+  }
+}
+
+// Merge the four warps' (m, l, O) of the tile's heads in warp order (mw,
+// lw: [kWarps][kMaxGroup]; ow: [kWarps][kMaxGroup][kD], all written and
+// synchronised by the caller), then write the output (one split) or this
+// split's partial.  kD: the head_dim (a constant in the bf16 kernel).
+template <typename OutT>
+__device__ __forceinline__ void merge_warps(const float* mw, const float* lw,
+                                            const float* ow, const Cta& c,
+                                            size_t part, const Partials& P,
+                                            OutT* out, int Hq, int kD) {
+  for (int x = threadIdx.x; x < c.Gt * kD; x += kThreads) {
+    const int g = x / kD;
+    const int d = x % kD;
+    float M = mw[g];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) M = fmaxf(M, mw[w * kMaxGroup + g]);
+    float acc = 0.f, lsum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float f = exp_diff(mw[w * kMaxGroup + g], M);
+      acc += f * ow[(w * kMaxGroup + g) * kD + d];
+      lsum += f * lw[w * kMaxGroup + g];
+    }
+    const int gg = c.g0 + g;               // the query head in the group
+    if (c.n_splits == 1) {
+      store(out + ((size_t)c.b * Hq + (size_t)c.h * c.G + gg) * kD + d,
+            acc / fmaxf(lsum, 1e-30f));
+    } else {
+      P.o[(part * c.G + gg) * kD + d] = acc;
+      if (d == 0) {
+        P.m[part * c.G + gg] = M;
+        P.l[part * c.G + gg] = lsum;
+      }
+    }
+  }
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kThreads, Bf16Ring<kD>::kResident)
 paged_attention_split_kernel(const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ k_pool,
                              const __nv_bfloat16* __restrict__ v_pool,
@@ -227,18 +373,19 @@ paged_attention_split_kernel(const __nv_bfloat16* __restrict__ q,
                              float* __restrict__ ws, int Hq, int Hkv, int bs,
                              int nb, int n_pages, int n_pages_padded,
                              int chunk, float scale) {
-  constexpr int kChunks = kD / 8;          // 16-byte chunks per token row
+  using R = Bf16Ring<kD>;
+  constexpr int kChunks = R::kChunks;      // 16-byte chunks per token row
+  constexpr int kRowChunks = R::kRowChunks;
+  constexpr int kSubBytes = R::kSubBytes;
   constexpr int kKSteps = kD / 16;         // k16 steps of K.Q^T
   constexpr int kMT = kD / 16;             // m16 tiles of O^T
   extern __shared__ uint4 smem[];
   char* smem_c = reinterpret_cast<char*>(smem);
-  int* tbl = reinterpret_cast<int*>(smem_c + kRingBytes);
+  int* tbl = reinterpret_cast<int*>(smem_c + R::kBytes);
 
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int split = blockIdx.z;
-  const int n_splits = gridDim.z;
-  const int G = Hq / Hkv;
+  const Cta c(Hq, Hkv);
+  const int h = c.h;
+  const int b = c.b;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -246,41 +393,35 @@ paged_attention_split_kernel(const __nv_bfloat16* __restrict__ q,
   const int t4 = lane % 4;                 // fragment column pair
 
   const int ctx = context_lens[b];
-  const int c0 = split * chunk;
-  const size_t part = ((size_t)b * Hkv + h) * n_splits + split;
-  const Partials P(ws, (size_t)gridDim.y * Hkv * n_splits, G);
+  const int c0 = c.split * chunk;
+  const size_t part = ((size_t)b * Hkv + h) * c.n_splits + c.split;
+  const Partials P(ws, (size_t)gridDim.y * Hkv * c.n_splits, c.G);
 
-  // this chunk's table entries, index rule applied (c0 is a multiple of
-  // bs); read whether or not ctx reaches them, so the reads overlap ctx's
-  {
-    const int p0 = c0 / bs;
-    const int n_cp = min(chunk / bs, n_pages_padded - p0);
-    const int* bt = block_tables + (size_t)b * n_pages;
-    for (int i = tid; i < n_cp; i += kThreads) {
-      const int page = p0 + i;
-      tbl[i] = block_index(page < n_pages ? bt[page] : 0, nb);
-    }
-  }
+  stage_table(tbl, block_tables, b, c0, chunk, bs, nb, n_pages,
+              n_pages_padded);
 
-  // Q^T's B fragments: column gq is query head h * G + gq (zero if >= G)
+  // Q^T's B fragments: column gq is query head h * G + g0 + gq (zero if
+  // past the tile)
   uint32_t qb[kKSteps][2];
   {
-    const __nv_bfloat16* qr = q + ((size_t)b * Hq + (size_t)h * G + gq) * kD;
+    const bool live = gq < c.Gt;
+    const __nv_bfloat16* qr =
+        q + ((size_t)b * Hq + (size_t)h * c.G + c.g0 + (live ? gq : 0)) * kD;
 #pragma unroll
     for (int kk = 0; kk < kKSteps; ++kk) {
-      qb[kk][0] = gq < G ? *reinterpret_cast<const uint32_t*>(
-                               qr + 16 * kk + 2 * t4) : 0u;
-      qb[kk][1] = gq < G ? *reinterpret_cast<const uint32_t*>(
-                               qr + 16 * kk + 8 + 2 * t4) : 0u;
+      qb[kk][0] = live ? *reinterpret_cast<const uint32_t*>(
+                             qr + 16 * kk + 2 * t4) : 0u;
+      qb[kk][1] = live ? *reinterpret_cast<const uint32_t*>(
+                             qr + 16 * kk + 8 + 2 * t4) : 0u;
     }
   }
 
   const int n_tab = n_pages_padded * bs;
   const int n_walk = ctx > 0 ? min(ctx, n_tab) : n_tab;
   if (c0 >= n_walk) {                      // nothing of this row here
-    if (tid < G) {
-      P.m[part * G + tid] = -INFINITY;
-      P.l[part * G + tid] = 0.f;
+    if (tid < c.Gt) {
+      P.m[part * c.G + c.g0 + tid] = -INFINITY;
+      P.l[part * c.G + c.g0 + tid] = 0.f;
     }
     return;
   }
@@ -301,16 +442,17 @@ paged_attention_split_kernel(const __nv_bfloat16* __restrict__ q,
       for (int i = 0; i < kSub * kChunks / 32; ++i) {
         const int x = lane + 32 * i;
         const int r = x / kChunks;
-        const int c = x % kChunks;
+        const int ch = x % kChunks;
         const int rel = base + r;
         const bool valid = c0 + rel < c_end;
         size_t off = 0;   // a zero-filled chunk reads nothing
         if (valid) {
           const int blk = tbl[rel / bs];
-          off = (((size_t)blk * bs + rel % bs) * Hkv + h) * kD + c * 8;
+          off = (((size_t)blk * bs + rel % bs) * Hkv + h) * kD + ch * 8;
         }
-        cp_async16(st + swz(r, c), k_pool + off, valid);
-        cp_async16(st + kSubBytes + swz(r, c), v_pool + off, valid);
+        cp_async16(st + swz<kRowChunks>(r, ch), k_pool + off, valid);
+        cp_async16(st + kSubBytes + swz<kRowChunks>(r, ch), v_pool + off,
+                   valid);
       }
     }
     cp_async_commit();   // an empty group keeps the ring's count uniform
@@ -340,7 +482,7 @@ paged_attention_split_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < kKSteps; ++kk) {
       uint32_t a[4];
-      ldsm_x4(sK + swz(lane & 15, 2 * kk + (lane >> 4)), a);
+      ldsm_x4(sK + swz<kRowChunks>(lane & 15, 2 * kk + (lane >> 4)), a);
       mma_bf16(s, a, qb[kk][0], qb[kk][1]);
     }
 
@@ -352,17 +494,17 @@ paged_attention_split_kernel(const __nv_bfloat16* __restrict__ q,
     }
     float alpha[2];
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      float mx = fmaxf(s[c], s[c + 2]);
+    for (int k = 0; k < 2; ++k) {
+      float mx = fmaxf(s[k], s[k + 2]);
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
-      const float m_new = fmaxf(m[c], mx);
-      alpha[c] = exp_diff(m[c], m_new);
-      s[c] = exp_diff(s[c], m_new);
-      s[c + 2] = exp_diff(s[c + 2], m_new);
-      l[c] = l[c] * alpha[c] + s[c] + s[c + 2];
-      m[c] = m_new;
+      const float m_new = fmaxf(m[k], mx);
+      alpha[k] = exp_diff(m[k], m_new);
+      s[k] = exp_diff(s[k], m_new);
+      s[k + 2] = exp_diff(s[k + 2], m_new);
+      l[k] = l[k] * alpha[k] + s[k] + s[k + 2];
+      m[k] = m_new;
     }
 #pragma unroll
     for (int i = 0; i < kMT; ++i) {
@@ -387,8 +529,8 @@ paged_attention_split_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int i = 0; i < kMT; ++i) {
       uint32_t a[4];
-      ldsm_x4_trans(sV + swz((lane & 7) + ((lane >> 4) << 3),
-                             2 * i + ((lane >> 3) & 1)),
+      ldsm_x4_trans(sV + swz<kRowChunks>((lane & 7) + ((lane >> 4) << 3),
+                                         2 * i + ((lane >> 3) & 1)),
                     a);
 #pragma unroll
       for (int j = 2; j >= 0; --j) mma_bf16(o[i], a, p0[j], p1[j]);
@@ -398,10 +540,10 @@ paged_attention_split_kernel(const __nv_bfloat16* __restrict__ q,
   cp_async_wait<0>();
 
 #pragma unroll
-  for (int c = 0; c < 2; ++c) {
-    l[c] += __shfl_xor_sync(0xffffffffu, l[c], 4);
-    l[c] += __shfl_xor_sync(0xffffffffu, l[c], 8);
-    l[c] += __shfl_xor_sync(0xffffffffu, l[c], 16);
+  for (int k = 0; k < 2; ++k) {
+    l[k] += __shfl_xor_sync(0xffffffffu, l[k], 4);
+    l[k] += __shfl_xor_sync(0xffffffffu, l[k], 8);
+    l[k] += __shfl_xor_sync(0xffffffffu, l[k], 16);
   }
 
   // merge the four warps in warp order through the (now idle) ring
@@ -410,60 +552,203 @@ paged_attention_split_kernel(const __nv_bfloat16* __restrict__ q,
   float* lw = mw + kWarps * kMaxGroup;
   float* ow = lw + kWarps * kMaxGroup;          // [kWarps][kMaxGroup][kD]
 #pragma unroll
-  for (int c = 0; c < 2; ++c) {
-    const int g = 2 * t4 + c;
+  for (int k = 0; k < 2; ++k) {
+    const int g = 2 * t4 + k;
     if (gq == 0) {
-      mw[warp * kMaxGroup + g] = m[c];
-      lw[warp * kMaxGroup + g] = l[c];
+      mw[warp * kMaxGroup + g] = m[k];
+      lw[warp * kMaxGroup + g] = l[k];
     }
     float* og = ow + (warp * kMaxGroup + g) * kD;
 #pragma unroll
     for (int i = 0; i < kMT; ++i) {
-      og[16 * i + gq] = o[i][c];
-      og[16 * i + gq + 8] = o[i][c + 2];
+      og[16 * i + gq] = o[i][k];
+      og[16 * i + gq + 8] = o[i][k + 2];
     }
   }
   __syncthreads();
-  for (int x = tid; x < G * kD; x += kThreads) {
-    const int g = x / kD;
-    const int d = x % kD;
-    float M = mw[g];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) M = fmaxf(M, mw[w * kMaxGroup + g]);
-    float acc = 0.f, lsum = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = exp_diff(mw[w * kMaxGroup + g], M);
-      acc += f * ow[(w * kMaxGroup + g) * kD + d];
-      lsum += f * lw[w * kMaxGroup + g];
+  merge_warps(mw, lw, ow, c, part, P, out, Hq, kD);
+}
+
+template <int kE>
+__global__ void __launch_bounds__(kThreads, F32Lanes<kE>::kResident)
+paged_attention_f32_split_kernel(const float* __restrict__ q,
+                                 const float* __restrict__ k_pool,
+                                 const float* __restrict__ v_pool,
+                                 const int* __restrict__ block_tables,
+                                 const int* __restrict__ context_lens,
+                                 float* __restrict__ out,
+                                 float* __restrict__ ws, int Hq, int Hkv,
+                                 int bs, int nb, int n_pages,
+                                 int n_pages_padded, int chunk,
+                                 float scale, int D) {
+  extern __shared__ uint4 smem[];
+  float* qs = reinterpret_cast<float*>(smem);   // [kMaxGroup][D]
+  float* mw = qs + kMaxGroup * D;               // [kWarps][kMaxGroup]
+  float* lw = mw + kWarps * kMaxGroup;
+  float* ow = lw + kWarps * kMaxGroup;          // [kWarps][kMaxGroup][D]
+  int* tbl = reinterpret_cast<int*>(reinterpret_cast<char*>(smem) +
+                                    f32_smem_bytes(D));
+
+  const Cta c(Hq, Hkv);
+  const int h = c.h;
+  const int b = c.b;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+
+  const int ctx = context_lens[b];
+  const int c0 = c.split * chunk;
+  const size_t part = ((size_t)b * Hkv + h) * c.n_splits + c.split;
+  const Partials P(ws, (size_t)gridDim.y * Hkv * c.n_splits, c.G);
+
+  stage_table(tbl, block_tables, b, c0, chunk, bs, nb, n_pages,
+              n_pages_padded);
+  // the tile's q rows, zero past the tile
+  for (int x = tid; x < kMaxGroup * D; x += kThreads) {
+    const int g = x / D;
+    qs[x] = g < c.Gt
+                ? q[((size_t)b * Hq + (size_t)h * c.G + c.g0 + g) * D +
+                    x % D]
+                : 0.f;
+  }
+
+  const int n_tab = n_pages_padded * bs;
+  const int n_walk = ctx > 0 ? min(ctx, n_tab) : n_tab;
+  if (c0 >= n_walk) {                      // nothing of this row here
+    if (tid < c.Gt) {
+      P.m[part * c.G + c.g0 + tid] = -INFINITY;
+      P.l[part * c.G + c.g0 + tid] = 0.f;
     }
-    if (n_splits == 1) {
-      out[((size_t)b * Hq + (size_t)h * G + g) * kD + d] =
-          __float2bfloat16(acc / fmaxf(lsum, 1e-30f));
+    return;
+  }
+  const int c_end = min(c0 + chunk, n_walk);
+  __syncthreads();                         // the table and q are staged
+
+  float o[kMaxGroup][kE];
+#pragma unroll
+  for (int g = 0; g < kMaxGroup; ++g) {
+#pragma unroll
+    for (int e = 0; e < kE; ++e) o[g][e] = 0.f;
+  }
+  float m[kMaxGroup], l[kMaxGroup];        // l: this lane's partial sums
+#pragma unroll
+  for (int g = 0; g < kMaxGroup; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.f;
+  }
+
+  const int n_sub = (c_end - c0 + kSubF32 - 1) / kSubF32;
+  for (int j = warp; j < n_sub; j += kWarps) {
+    const int base = c0 + j * kSubF32;
+    const int n_here = min(kSubF32, c_end - base);
+    // this lane's token's scores for the tile's heads
+    float s[kMaxGroup];
+#pragma unroll
+    for (int g = 0; g < kMaxGroup; ++g) s[g] = 0.f;
+    if (lane < n_here) {
+      const int rel = base + lane - c0;
+      const float4* kr = reinterpret_cast<const float4*>(
+          k_pool + (((size_t)tbl[rel / bs] * bs + rel % bs) * Hkv + h) * D);
+#pragma unroll 4
+      for (int i = 0; i < D / 4; ++i) {
+        const float4 kv = kr[i];
+#pragma unroll
+        for (int g = 0; g < kMaxGroup; ++g) {
+          const float4 qv = reinterpret_cast<const float4*>(qs + g * D)[i];
+          s[g] = fmaf(qv.x, kv.x, s[g]);
+          s[g] = fmaf(qv.y, kv.y, s[g]);
+          s[g] = fmaf(qv.z, kv.z, s[g]);
+          s[g] = fmaf(qv.w, kv.w, s[g]);
+        }
+      }
+      const bool in_ctx = base + lane < ctx;
+#pragma unroll
+      for (int g = 0; g < kMaxGroup; ++g) {
+        s[g] = in_ctx ? s[g] * scale : kNegInf;
+      }
     } else {
-      P.o[(part * G + g) * kD + d] = acc;
-      if (d == 0) {
-        P.m[part * G + g] = M;
-        P.l[part * G + g] = lsum;
+#pragma unroll
+      for (int g = 0; g < kMaxGroup; ++g) s[g] = -INFINITY;
+    }
+    // one online-softmax update per head over the 32 tokens
+#pragma unroll
+    for (int g = 0; g < kMaxGroup; ++g) {
+      float mx = s[g];
+#pragma unroll
+      for (int w = 16; w > 0; w >>= 1) {
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
+      }
+      const float m_new = fmaxf(m[g], mx);
+      const float alpha = expf(m[g] - m_new);
+      s[g] = expf(s[g] - m_new);           // 0 past the walk
+      l[g] = l[g] * alpha + s[g];
+      m[g] = m_new;
+#pragma unroll
+      for (int e = 0; e < kE; ++e) o[g][e] *= alpha;
+    }
+    // O += P . V, token by token, the lanes on D
+    for (int u = 0; u < n_here; ++u) {
+      const int rel = base + u - c0;
+      const float* vr =
+          v_pool + (((size_t)tbl[rel / bs] * bs + rel % bs) * Hkv + h) * D;
+      float vv[kE];
+#pragma unroll
+      for (int e = 0; e < kE; ++e) {
+        const int d = lane + 32 * e;
+        vv[e] = d < D ? vr[d] : 0.f;
+      }
+#pragma unroll
+      for (int g = 0; g < kMaxGroup; ++g) {
+        const float p = __shfl_sync(0xffffffffu, s[g], u);
+#pragma unroll
+        for (int e = 0; e < kE; ++e) o[g][e] = fmaf(p, vv[e], o[g][e]);
       }
     }
   }
+
+#pragma unroll
+  for (int g = 0; g < kMaxGroup; ++g) {
+#pragma unroll
+    for (int w = 16; w > 0; w >>= 1) {
+      l[g] += __shfl_xor_sync(0xffffffffu, l[g], w);
+    }
+  }
+  // merge the four warps in warp order
+#pragma unroll
+  for (int g = 0; g < kMaxGroup; ++g) {
+    if (lane == 0) {
+      mw[warp * kMaxGroup + g] = m[g];
+      lw[warp * kMaxGroup + g] = l[g];
+    }
+#pragma unroll
+    for (int e = 0; e < kE; ++e) {
+      const int d = lane + 32 * e;
+      if (d < D) ow[(warp * kMaxGroup + g) * D + d] = o[g][e];
+    }
+  }
+  __syncthreads();
+  merge_warps(mw, lw, ow, c, part, P, out, Hq, D);
 }
 
 // One CTA per (KV head, row, query head of the group), one thread per
-// output element.  The splits' m and l are read once, in parallel, into
-// shared memory with their weights e^(m_s - M) (0 for an empty split, m =
-// -inf, whose O is never read); then every thread sums its element over
-// the splits in split order, the loads independent of each other.  Split
-// 0 always holds a token, so M is finite.
-__global__ void __launch_bounds__(kD)
+// output element (whole warps: threads past D only reduce).  The splits'
+// m and l are read once, in parallel, into shared memory with their
+// weights e^(m_s - M) (0 for an empty split, m = -inf, whose O is never
+// read); then every thread sums its element over the splits in split
+// order, the loads independent of each other.  Split 0 always holds a
+// token, so M is finite.  kD: the head_dim of a bf16 instance; 0 for the
+// fp32 kernel's one instance, which takes D at run time.
+template <int kD, typename OutT>
+__global__ void __launch_bounds__(kD ? combine_threads<kD>() : kMaxD)
 paged_attention_combine_kernel(const float* __restrict__ ws,
-                               __nv_bfloat16* __restrict__ out, int Hq,
-                               int Hkv, int n_splits) {
+                               OutT* __restrict__ out, int Hq, int Hkv,
+                               int d_run, int n_splits) {
+  const int D = kD ? kD : d_run;
+  const int kCT = kD ? combine_threads<kD>() : (int)blockDim.x;
   extern __shared__ float sm[];            // m, then l, then w
   float* ls = sm + n_splits;
   float* w = ls + n_splits;
-  __shared__ float red[kD / 32];
+  __shared__ float red[kMaxD / 32];
   __shared__ float l_sum;
   const int h = blockIdx.x;
   const int b = blockIdx.y;
@@ -475,7 +760,7 @@ paged_attention_combine_kernel(const float* __restrict__ ws,
                    (size_t)gridDim.y * Hkv * n_splits, G);
 
   float M = -INFINITY;                     // a max: the order is free
-  for (int s = d; s < n_splits; s += kD) {
+  for (int s = d; s < n_splits; s += kCT) {
     sm[s] = P.m[(part0 + s) * G + g];
     ls[s] = P.l[(part0 + s) * G + g];
     M = fmaxf(M, sm[s]);
@@ -487,8 +772,8 @@ paged_attention_combine_kernel(const float* __restrict__ ws,
   if (d % 32 == 0) red[d / 32] = M;
   __syncthreads();
 #pragma unroll
-  for (int i = 0; i < kD / 32; ++i) M = fmaxf(M, red[i]);
-  for (int s = d; s < n_splits; s += kD) {
+  for (int i = 0; i < kCT / 32; ++i) M = fmaxf(M, red[i]);
+  for (int s = d; s < n_splits; s += kCT) {
     w[s] = sm[s] == -INFINITY ? 0.f : exp_diff(sm[s], M);
   }
   __syncthreads();
@@ -498,65 +783,158 @@ paged_attention_combine_kernel(const float* __restrict__ ws,
     l_sum = l;
   }
   float acc = 0.f;
+  if (d < D) {
 #pragma unroll 4
-  for (int s = 0; s < n_splits; ++s) {
-    if (w[s] != 0.f) {
-      acc = fmaf(w[s], P.o[((part0 + s) * G + g) * kD + d], acc);
+    for (int s = 0; s < n_splits; ++s) {
+      if (w[s] != 0.f) {
+        acc = fmaf(w[s], P.o[((part0 + s) * G + g) * D + d], acc);
+      }
     }
   }
   __syncthreads();
-  out[((size_t)b * Hq + (size_t)h * G + g) * kD + d] =
-      __float2bfloat16(acc / fmaxf(l_sum, 1e-30f));
+  if (d < D) {
+    store(out + ((size_t)b * Hq + (size_t)h * G + g) * D + d,
+          acc / fmaxf(l_sum, 1e-30f));
+  }
 }
 
-}  // namespace
+struct Args {
+  const void* q;
+  const void* k_pool;
+  const void* v_pool;
+  const int* block_tables;
+  const int* context_lens;
+  void* out;
+  float* ws;
+  int B, Hq, Hkv, D, bs, nb, n_pages, n_pages_padded, n_splits, chunk;
+  float scale;
+  cudaStream_t stream;
+};
 
-// q (B, Hq, D), k_pool / v_pool (nb, bs, Hkv, D), out (B, Hq, D): bf16,
-// contiguous, 16-byte aligned.  block_tables (B, n_pages) and
-// context_lens (B,): int32.  n_pages_padded: the table width rounded up to
-// the TPU kernel's page tile.  The padded table's n_pages_padded * bs
-// tokens are split into n_splits <= 2048 chunks of `chunk` tokens (a
-// multiple of 64 and of bs, at most 1024 pages; the last chunk may run
-// past the table but not by a whole chunk).  workspace: (2 + D) * B * Hq *
-// n_splits fp32 when n_splits > 1, else unused.  Launches on ``stream``
-// (two kernels when n_splits > 1) and returns the cudaGetLastError() code
-// (0 = launched).
-extern "C" int fs_paged_attention_bf16(
-    const void* q, const void* k_pool, const void* v_pool,
-    const void* block_tables, const void* context_lens, void* out,
-    void* workspace, int B, int Hq, int Hkv, int D, int bs, int nb,
-    int n_pages, int n_pages_padded, int n_splits, int chunk, float scale,
-    void* stream) {
-  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > kMaxGroup ||
+// The split kernel (its dynamic shared memory: smem_bytes and the
+// chunk's table; ``extra``: its arguments past the common ones), then,
+// with several splits, the combine (kD: its instance, 0 for run-time D).
+template <int kD, typename InT, typename Kernel, typename... Extra>
+int launch(const Args& a, Kernel kernel, int smem_bytes, Extra... extra) {
+  const int smem = smem_bytes + ((a.chunk / a.bs) * 4 + 15) / 16 * 16;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int G = a.Hq / a.Hkv;
+  const int n_tiles = (G + kMaxGroup - 1) / kMaxGroup;
+  auto* op = static_cast<InT*>(a.out);
+  kernel<<<dim3(a.Hkv * n_tiles, a.B, a.n_splits), kThreads, smem,
+           a.stream>>>(
+      static_cast<const InT*>(a.q), static_cast<const InT*>(a.k_pool),
+      static_cast<const InT*>(a.v_pool), a.block_tables, a.context_lens, op,
+      a.ws, a.Hq, a.Hkv, a.bs, a.nb, a.n_pages, a.n_pages_padded, a.chunk,
+      a.scale, extra...);
+  const cudaError_t launched = cudaGetLastError();
+  if (launched != cudaSuccess || a.n_splits == 1) return (int)launched;
+  paged_attention_combine_kernel<kD, InT>
+      <<<dim3(a.Hkv, a.B, G), (a.D + 31) / 32 * 32,
+         3 * a.n_splits * sizeof(float), a.stream>>>(a.ws, op, a.Hq, a.Hkv,
+                                                     a.D, a.n_splits);
+  return (int)cudaGetLastError();
+}
+
+template <int kD>
+int launch_bf16(const Args& a) {
+  return launch<kD, __nv_bfloat16>(a, paged_attention_split_kernel<kD>,
+                                   Bf16Ring<kD>::kBytes);
+}
+
+template <int kE>
+int launch_f32(const Args& a) {
+  return launch<0, float>(a, paged_attention_f32_split_kernel<kE>,
+                          f32_smem_bytes(a.D), a.D);
+}
+
+// every head_dim of the domain: a multiple of 16 up to 256
+#define FS_PAGED_ATTENTION_DIMS(X)                                          \
+  X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128) X(144) X(160) X(176)   \
+  X(192) X(208) X(224) X(240) X(256)
+
+// The split kernel (and the combine) at head_dim D in fp32 or bf16, or
+// cudaErrorInvalidValue for arguments outside the kernels' domain.
+int paged_attention(bool f32, const void* q, const void* k_pool,
+                    const void* v_pool, const void* block_tables,
+                    const void* context_lens, void* out, void* workspace,
+                    int B, int Hq, int Hkv, int D, int bs, int nb,
+                    int n_pages, int n_pages_padded, int n_splits, int chunk,
+                    float scale, void* stream) {
+  if (B <= 0 || Hkv <= 0 || Hq <= 0 || Hq % Hkv != 0 || Hq / Hkv > 65535 ||
       bs <= 0 || nb <= 0 || n_pages <= 0 || n_pages_padded < n_pages ||
-      B > 65535 || D != kD || n_splits <= 0 || n_splits > kMaxSplits ||
-      chunk <= 0 || chunk % kStep != 0 || chunk % bs != 0 ||
+      B > 65535 || n_splits <= 0 || n_splits > kMaxSplits || chunk <= 0 ||
+      chunk % kStep != 0 || chunk % bs != 0 ||
       chunk / bs > kMaxChunkPages ||
       (long long)n_pages_padded * bs > (long long)n_splits * chunk ||
       (long long)(n_splits - 1) * chunk >= (long long)n_pages_padded * bs ||
       (n_splits > 1 && workspace == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  const int smem = kRingBytes + ((chunk / bs) * 4 + 15) / 16 * 16;
-  const cudaError_t err = cudaFuncSetAttribute(
-      paged_attention_split_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  auto* op = static_cast<__nv_bfloat16*>(out);
-  auto* ws = static_cast<float*>(workspace);
-  paged_attention_split_kernel<<<dim3(Hkv, B, n_splits), kThreads, smem,
-                                 s>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k_pool),
-      static_cast<const __nv_bfloat16*>(v_pool),
-      static_cast<const int*>(block_tables),
-      static_cast<const int*>(context_lens), op, ws, Hq, Hkv, bs, nb,
-      n_pages, n_pages_padded, chunk, scale);
-  const cudaError_t launched = cudaGetLastError();
-  if (launched != cudaSuccess || n_splits == 1) return (int)launched;
-  paged_attention_combine_kernel<<<dim3(Hkv, B, Hq / Hkv), kD,
-                                   3 * n_splits * sizeof(float), s>>>(
-      ws, op, Hq, Hkv, n_splits);
-  return (int)cudaGetLastError();
+  const Args a{q, k_pool, v_pool, static_cast<const int*>(block_tables),
+               static_cast<const int*>(context_lens), out,
+               static_cast<float*>(workspace), B, Hq, Hkv, D, bs, nb,
+               n_pages, n_pages_padded, n_splits, chunk, scale,
+               reinterpret_cast<cudaStream_t>(stream)};
+  if (D % 16 != 0 || D < 16 || D > kMaxD) return (int)cudaErrorInvalidValue;
+  if (f32) {
+    switch ((D + 31) / 32) {
+      case 1: return launch_f32<1>(a);
+      case 2: return launch_f32<2>(a);
+      case 3: return launch_f32<3>(a);
+      case 4: return launch_f32<4>(a);
+      case 5: return launch_f32<5>(a);
+      case 6: return launch_f32<6>(a);
+      case 7: return launch_f32<7>(a);
+      default: return launch_f32<8>(a);
+    }
+  }
+  switch (D) {
+#define FS_CASE(D_) \
+  case D_:          \
+    return launch_bf16<D_>(a);
+    FS_PAGED_ATTENTION_DIMS(FS_CASE)
+#undef FS_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// q (B, Hq, D), k_pool / v_pool (nb, bs, Hkv, D), out (B, Hq, D): bf16
+// (fs_paged_attention_bf16) or fp32 (fs_paged_attention_f32), contiguous,
+// 16-byte aligned; D a multiple of 16 up to 256; any group Hq / Hkv.
+// block_tables (B, n_pages) and context_lens (B,): int32.  n_pages_padded:
+// the table width rounded up to the TPU kernel's page tile.  The padded
+// table's n_pages_padded * bs tokens are split into n_splits <= 2048
+// chunks of `chunk` tokens (a multiple of 64 and of bs, at most 1024
+// pages; the last chunk may run past the table but not by a whole chunk).
+// workspace: (2 + D) * B * Hq * n_splits fp32 when n_splits > 1, else
+// unused.  Launches on ``stream`` (two kernels when n_splits > 1) and
+// returns the cudaGetLastError() code (0 = launched).
+extern "C" int fs_paged_attention_bf16(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* block_tables, const void* context_lens, void* out,
+    void* workspace, int B, int Hq, int Hkv, int D, int bs, int nb,
+    int n_pages, int n_pages_padded, int n_splits, int chunk, float scale,
+    void* stream) {
+  return paged_attention(false, q, k_pool, v_pool, block_tables,
+                         context_lens, out, workspace, B, Hq, Hkv, D, bs, nb,
+                         n_pages, n_pages_padded, n_splits, chunk, scale,
+                         stream);
+}
+
+extern "C" int fs_paged_attention_f32(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* block_tables, const void* context_lens, void* out,
+    void* workspace, int B, int Hq, int Hkv, int D, int bs, int nb,
+    int n_pages, int n_pages_padded, int n_splits, int chunk, float scale,
+    void* stream) {
+  return paged_attention(true, q, k_pool, v_pool, block_tables,
+                         context_lens, out, workspace, B, Hq, Hkv, D, bs, nb,
+                         n_pages, n_pages_padded, n_splits, chunk, scale,
+                         stream);
 }

@@ -1,16 +1,20 @@
 """Serving launcher of the port: trace replays and the online serving API.
 
 Counterpart of ``repro/launch/serve.py``, with the reference's flags and
-output lines and one more flag, ``--device {cuda,cpu}`` (default
-``cuda``), for real mode:
+output lines and two more flags, ``--device {cuda,cpu}`` (default
+``cuda``) and ``--reduced``, for real mode:
 
   * ``--device cuda`` serves the arch's published config at full width
     (``get_config``) with seeded random weights made on the card
     (``init_params(cfg, seed, device)``) through the hand-written CUDA
     kernels.  With no GPU it fails; it never falls back to the CPU.
-  * ``--device cpu`` serves the arch's reduced config
-    (``get_smoke_config``, the reference's reduced model) with the
-    kernels' plain PyTorch versions.
+  * ``--device cuda --reduced`` serves the arch's reduced config
+    (``get_smoke_config``, the model the reference's real mode serves,
+    head_dim 64) on the card through the same kernels, its weights drawn
+    on the CPU from the seed and copied over: the bits ``--device cpu``
+    serves.  With no GPU it fails as ``--device cuda`` does.
+  * ``--device cpu`` serves the arch's reduced config with the kernels'
+    plain PyTorch versions (``--reduced`` changes nothing there).
 
 Sim mode touches no device.  TTFT and TBT come from the engine's
 simulated clock, modelled by the A10 cost model (``io/cost_model.py``),
@@ -38,6 +42,10 @@ the online run adds each conversation's token history
   # online smoke on the CPU at the reduced width, with its event log
   PYTHONPATH=src python -m repro_torch.launch.serve --online --smoke \
       --real --device cpu --events /tmp/events.jsonl
+
+  # the same smoke on the card, the reduced model on the CUDA kernels
+  PYTHONPATH=src python -m repro_torch.launch.serve --online --smoke \
+      --real --device cuda --reduced --arch qwen2-1.5b
 
   # chaos, admission control, drain: as the reference
   PYTHONPATH=src python -m repro_torch.launch.serve --online --chaos --smoke
@@ -70,24 +78,27 @@ import json
 import random
 
 
-def _build_real_bundle(arch: str, seed: int, device: str = "cuda"):
+def _build_real_bundle(arch: str, seed: int, device: str = "cuda",
+                       reduced: bool = False):
     """The model bundle real mode serves: on ``cuda`` the arch's full
-    config with random weights from ``seed`` made on the card, on ``cpu``
-    its reduced config; the matmul weights cast to bf16 as they are
-    drawn (``init_params(serving=True)``).  Raises ``SystemExit`` where
-    the arch is not served by the paged path or no GPU is there for
-    ``cuda``."""
+    config with random weights from ``seed`` made on the card, or with
+    ``reduced`` its reduced config with the weights drawn on the CPU and
+    copied to the card (the ``cpu`` bundle's bits); on ``cpu`` its
+    reduced config; the matmul weights cast to bf16 as they are drawn
+    (``init_params(serving=True)``).  Raises ``SystemExit`` where the arch
+    is not served by the paged path or no GPU is there for ``cuda``."""
     import torch
 
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.models import transformer as T
     from repro_torch.models.paged import supports_paged
+    from repro_torch.train.optimizer import tree_map
     if device == "cuda":
         if not torch.cuda.is_available():
             raise SystemExit("--device cuda: torch.cuda.is_available() is "
                              "false; pass --device cpu to serve the "
                              "reduced model on the CPU")
-        cfg = get_config(arch)
+        cfg = get_smoke_config(arch) if reduced else get_config(arch)
     else:
         cfg = get_smoke_config(arch)
     if not supports_paged(cfg):
@@ -102,7 +113,11 @@ def _build_real_bundle(arch: str, seed: int, device: str = "cuda"):
     # drawn) and no fp32 tree: each runner's ``serving_params`` then keeps
     # these tensors, and olmoe-1b-7b's experts take 13.4 GB where the
     # fp32 tree took 27.7
-    params = T.init_params(cfg, seed=seed, device=device, serving=True)
+    if reduced and device == "cuda":
+        params = tree_map(lambda t: t.to(device), T.init_params(
+            cfg, seed=seed, device="cpu", serving=True))
+    else:
+        params = T.init_params(cfg, seed=seed, device=device, serving=True)
     return {"cfg": cfg, "params": params}
 
 
@@ -202,7 +217,8 @@ def run_online(args) -> dict:
         args.rate = max(args.rate, 20.0)
     model = None
     if args.real:
-        model = _build_real_bundle(args.arch, args.seed, args.device)
+        model = _build_real_bundle(args.arch, args.seed, args.device,
+                                   args.reduced)
         _reset_launch_counts()
         cfg = EngineConfig(
             mode="real",
@@ -411,7 +427,8 @@ def run_replay(args) -> dict:
     policies = args.policy or ["fastswitch"]
     results = {}
     if args.real:
-        model = _build_real_bundle(args.arch, args.seed, args.device)
+        model = _build_real_bundle(args.arch, args.seed, args.device,
+                                   args.reduced)
         convs = sample_conversations(args.conversations, rate_req_s=args.rate,
                                      seed=args.seed, prompt_mu=3.0,
                                      resp_mu=3.0, max_tokens=96)
@@ -470,7 +487,8 @@ def run_serve(args) -> dict:
 
     n = max(1, args.router)
     policy = (args.policy or ["fastswitch"])[0]
-    model = (_build_real_bundle(args.arch, args.seed, args.device)
+    model = (_build_real_bundle(args.arch, args.seed, args.device,
+                                args.reduced)
              if args.real else None)
     cfg = EngineConfig(
         mode="real" if args.real else "sim",
@@ -530,6 +548,10 @@ def main() -> None:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="real mode's device: cuda serves the published "
                          "config at full width, cpu the reduced one")
+    ap.add_argument("--reduced", action="store_true",
+                    help="with --real --device cuda: serve the reduced "
+                         "config (the reference's real-mode model) on the "
+                         "card, its weights drawn on the CPU")
     ap.add_argument("--policy", action="append", default=None,
                     choices=sorted(POLICIES))
     ap.add_argument("--conversations", type=int, default=100)

@@ -39,6 +39,40 @@ def test_attention_tolerance_passes_one_ulp_and_fails_a_dropped_tile():
         chip_smoke.attention_error(short, ref)
 
 
+@pytest.mark.parametrize("kw,size", [(dict(D=64), 2),
+                                     (dict(D=64, dtype=torch.float32), 4),
+                                     (dict(D=256), 2),
+                                     (dict(Hq=32, Hkv=2), 2)],
+                         ids=["D64", "D64_fp32", "D256", "group16"])
+def test_domain_cases_and_their_bounds(kw, size):
+    """The kernels phase's shapes past the served D 128, B 32 x 128
+    pages: their dtype and heads; bytes of the walked K and V at the
+    case's element size; an fp32 output held to 1e-5 (passing a 1e-6
+    move, failing the longest row one 64-token tile short)."""
+    case = chip_smoke.attention_case(32, 128, torch.device("cpu"), seed=3,
+                                     **kw)
+    D = kw.get("D", 128)
+    B, Hq, _ = case["q"].shape
+    assert case["q"].shape[-1] == case["k"].shape[-1] == D
+    assert case["q"].element_size() == case["k"].element_size() == size
+    assert (Hq, case["k"].shape[2]) == (kw.get("Hq", 12), 2)
+    nbytes, flops = chip_smoke.attention_work(case)
+    walked = sum(int(c) if c > 0 else 128 * 16 for c in case["ctx"])
+    assert nbytes == (walked * 2 * D * size * 2 + 2 * B * Hq * D * size
+                      + case["bt"].numel() * 4 + B * 4)
+    assert flops == 4 * walked * Hq * D
+    if size == 4:
+        args = [case["q"], case["k"], case["v"], case["bt"], case["ctx"],
+                case["scale"], case["ppcb"]]
+        ref = pa.paged_attention_plain(*args)
+        assert ref.dtype == torch.float32
+        assert chip_smoke.attention_error(ref + 1e-6, ref) > 0
+        args[4] = case["ctx"].clone()
+        args[4][-2] -= 64
+        with pytest.raises(AssertionError, match="allowed 1e-05"):
+            chip_smoke.attention_error(pa.paged_attention_plain(*args), ref)
+
+
 def test_busy_seconds_merges_overlapping_intervals():
     assert chip_smoke.busy_seconds([(0, 2e6), (1e6, 3e6), (5e6, 6e6),
                                     (5.5e6, 5.6e6)]) == 4.0

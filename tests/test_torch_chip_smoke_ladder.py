@@ -142,3 +142,43 @@ def test_fairness_example_read_as_chip_smoke_reads_it():
             "\n".join(LADDER_LINES.splitlines()[:-1])))
     with pytest.raises(AssertionError, match="exited 3"):
         chip_smoke.check_fairness_example(_background(LADDER_LINES, 3))
+
+
+def test_profile_window_records_the_window_iterations():
+    """``profile_window`` starts the profiler just before iteration 30
+    and stops it just after iteration 69, each behind a synchronise; a
+    run that ends inside the window is closed by ``close``, once."""
+    class Prof:
+        def __init__(self):
+            self.calls = []
+
+        def start(self):
+            self.calls.append(("start", eng.n))
+
+        def stop(self):
+            self.calls.append(("stop", eng.n))
+
+    class Eng:
+        n = 0
+
+        def step(self):
+            self.n += 1
+    syncs = []
+    eng, prof = Eng(), Prof()
+    win = chip_smoke.profile_window(eng, prof, (30, 70),
+                                    lambda: syncs.append(eng.n))
+    for _ in range(115):
+        eng.step()
+    win["close"]()
+    assert prof.calls == [("start", 30), ("stop", 70)]
+    assert syncs == [30, 70] and win["iterations"] == 40
+    assert win["wall_s"] >= 0
+    eng, prof = Eng(), Prof()
+    win = chip_smoke.profile_window(eng, prof, (30, 70), lambda: None)
+    for _ in range(50):
+        eng.step()
+    assert prof.calls == [("start", 30)]
+    win["close"]()
+    win["close"]()
+    assert prof.calls == [("start", 30), ("stop", 50)]
+    assert win["iterations"] == 20

@@ -38,6 +38,20 @@ def test_dev_kernels_on_the_cpu():
         for k in ("paged_attention", "block_copy", "block_copy_grouped")]
 
 
+def test_dev_kernels_runs_the_reference_case():
+    """torch_dev_kernels.py's paged attention is scripts/dev_kernels.py's
+    own case: its batch, heads, head_dim 64, pages and pool, in fp32."""
+    import re
+    ref = (chip_smoke.SCRIPTS / "dev_kernels.py").read_text()
+    port = (chip_smoke.SCRIPTS / "torch_dev_kernels.py").read_text()
+    shape = re.compile(r"^B, Hq, Hkv, D, bs, nb, npages = (.*)$", re.M)
+    assert shape.search(port)[1] == shape.search(ref)[1] == \
+        "3, 8, 2, 64, 16, 32, 4"
+    assert "q = jax.random.normal(ks[0], (B, Hq, D), jnp.float32)" in ref
+    assert re.search(r'^DTYPE = "float32"$', port, re.M)
+    assert "not covered" not in port
+
+
 def test_dev_engine_on_the_cpu():
     run = _run("torch_dev_engine.py", "4", "--device", "cpu")
     assert run.returncode == 0, run.stderr

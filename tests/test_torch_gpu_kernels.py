@@ -56,8 +56,8 @@ def _to(dev, *arrays, dtype=torch.bfloat16):
     (8, 12, 2, 128, 16, 128, 4),     # qwen2-1.5b, ctx up to 2048
     (32, 12, 2, 128, 16, 128, 4),
     (5, 12, 2, 128, 16, 7, 4),       # ragged page tile
-    (3, 8, 2, 128, 16, 4, 1),        # tests/test_kernels.py's table shapes
-    (1, 8, 1, 128, 16, 8, 2),
+    (3, 8, 2, 64, 16, 4, 1),         # tests/test_kernels.py's table shapes
+    (1, 8, 1, 64, 16, 8, 2),
 ])
 def test_paged_attention_kernel_matches_plain(cuda, B, Hq, Hkv, D, bs,
                                               n_pages, ppcb):
@@ -81,24 +81,85 @@ def test_paged_attention_kernel_matches_plain(cuda, B, Hq, Hkv, D, bs,
                                rtol=RTOL)
 
 
-def test_paged_attention_kernel_refuses_fp32(cuda):
-    q = torch.zeros((1, 4, 128), device=cuda)
-    kv = torch.zeros((2, 16, 2, 128), device=cuda)
+# tests/test_kernels.py::test_paged_attention_sweep's shapes, verbatim
+REFERENCE_SWEEP = [
+    (1, 4, 4, 64, 16, 2),      # MHA
+    (3, 8, 2, 64, 16, 4),      # GQA group=4
+    (2, 16, 16, 128, 16, 3),   # MHA wide head
+    (2, 12, 2, 128, 32, 2),    # qwen2-like, bigger block
+    (1, 8, 1, 64, 16, 8),      # MQA
+]
+# fp32 as the reference holds its fp32 sweep (exact fp32 products summed
+# in another order); bf16 as every bf16 case here
+DTYPE_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (ATOL, RTOL)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,Hq,Hkv,D,bs,npages", REFERENCE_SWEEP)
+def test_paged_attention_kernel_matches_the_reference_sweep(
+        cuda, B, Hq, Hkv, D, bs, npages, dtype):
+    """The reference's own kernel sweep on the card: its five shapes, its
+    pool (npages * B + 3 blocks, a permuted table) and its contexts (1
+    token, a partial block, full), each dtype against the plain version
+    at the reference's fp32 tolerance or this file's bf16 one."""
+    rng = np.random.default_rng(B * 100 + D + npages)
+    nb = npages * B + 3
+    q = rng.standard_normal((B, Hq, D)).astype(np.float32)
+    k = rng.standard_normal((nb, bs, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((nb, bs, Hkv, D)).astype(np.float32)
+    bt = rng.permutation(nb)[:B * npages].reshape(B, npages).astype(np.int32)
+    ctx = np.linspace(1, npages * bs, B).astype(np.int32)
+    qd, kd, vd = _to(cuda, q, k, v, dtype=dtype)
+    btd, ctxd = _to(cuda, bt, ctx, dtype=torch.int32)
+    before = pa.paged_attention.launches
+    out = pa.paged_attention(qd, kd, vd, btd, ctxd, D ** -0.5)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches == before + 1
+    assert out.dtype == dtype
+    ref = pa.paged_attention_plain(qd, kd, vd, btd, ctxd, D ** -0.5)
+    atol, rtol = DTYPE_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+
+
+def test_paged_attention_kernel_refuses_outside_its_domain(cuda):
+    """A CUDA tensor outside the kernels' domain raises, naming it, and
+    never reaches the plain version: head_dim 72 (not a multiple of 16),
+    272 (past 256), fp16, and q / K / V of two dtypes."""
     bt = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
     ctx = torch.ones((1,), dtype=torch.int32, device=cuda)
-    with pytest.raises(TypeError):
+
+    def call(D, q_dtype, kv_dtype=None):
+        q = torch.zeros((1, 4, D), dtype=q_dtype, device=cuda)
+        kv = torch.zeros((2, 16, 2, D), dtype=kv_dtype or q_dtype,
+                         device=cuda)
         pa.paged_attention(q, kv, kv, bt, ctx, 0.125)
-    with pytest.raises(ValueError):                 # head_dim 64: not served
-        pa.paged_attention(q[..., :64].bfloat16().contiguous(),
-                           kv[..., :64].bfloat16().contiguous(),
-                           kv[..., :64].bfloat16().contiguous(), bt, ctx,
-                           0.125)
+    before = pa.paged_attention.launches
+    for D in (72, 272):
+        for dtype in (torch.bfloat16, torch.float32):
+            with pytest.raises(ValueError, match="multiple of 16 up to 256"):
+                call(D, dtype)
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        call(64, torch.float16)
+    with pytest.raises(TypeError, match="of one dtype"):
+        call(64, torch.float32, torch.bfloat16)
+    with pytest.raises(TypeError, match="of one dtype"):
+        call(128, torch.bfloat16, torch.float32)
+    assert pa.paged_attention.launches == before
+    call(64, torch.float32)                         # the domain's edges
+    call(256, torch.bfloat16)
+    call(16, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches == before + 3
 
 
-def _plan(B, Hkv, n_pages, bs, ppcb):
+def _plan(B, Hkv, n_pages, bs, ppcb, D=128, dtype=torch.bfloat16, G=6):
     """(n_splits, chunk, padded table tokens) of the kernel's launch."""
     n_tab = pa._padded_pages(n_pages, ppcb) * bs
-    return (*pa.split_plan(B, Hkv, n_tab, bs, pa._sm_count(0)), n_tab)
+    return (*pa.split_plan(B, Hkv, n_tab, bs, pa._sm_count(0),
+                           pa.ctas_per_sm(D, dtype), pa.head_tiles(G, 1)),
+            n_tab)
 
 
 def _edges(B, ch, tab):
@@ -179,6 +240,91 @@ def test_paged_attention_split_kv_matches_plain(cuda, name):
                                rtol=RTOL)
 
 
+# name: (D, dtype, B, group, Hkv, bs, n_pages, ppcb, contexts as in
+# SPLIT_CASES, whether the plan must split)
+DOMAIN_CASES = {
+    "D112_engine": (112, torch.bfloat16, 8, 4, 2, 16, 64, 4,
+                    lambda rng, B, ch, tab: rng.integers(256, 601, B), True),
+    "D112_chunk_edges": (112, torch.bfloat16, 8, 2, 2, 16, 128, 4,
+                         lambda rng, B, ch, tab: _edges(B, ch, tab), True),
+    "D256_engine": (256, torch.bfloat16, 8, 2, 2, 16, 64, 4,
+                    lambda rng, B, ch, tab: rng.integers(256, 601, B), True),
+    "D256_chunk_edges": (256, torch.bfloat16, 32, 2, 2, 16, 128, 4,
+                         lambda rng, B, ch, tab: _edges(B, ch, tab), True),
+    "D256_ctx0_past_table": (256, torch.bfloat16, 4, 8, 2, 16, 7, 4,
+                             lambda rng, B, ch, tab: [0, 10 ** 6, tab - 15,
+                                                      200], True),
+    "D64_engine": (64, torch.bfloat16, 8, 2, 2, 16, 64, 4,
+                   lambda rng, B, ch, tab: rng.integers(256, 601, B), True),
+    "D64_chunk_edges": (64, torch.bfloat16, 32, 2, 2, 16, 128, 4,
+                        lambda rng, B, ch, tab: _edges(B, ch, tab), True),
+    "D64_short_rows": (64, torch.bfloat16, 16, 2, 2, 16, 128, 4,
+                       lambda rng, B, ch, tab: range(1, B + 1), True),
+    "D64_one_split": (64, torch.bfloat16, 300, 2, 2, 16, 8, 4,
+                      lambda rng, B, ch, tab: rng.integers(0, 129, B),
+                      False),
+    "D16_group3": (16, torch.bfloat16, 6, 3, 2, 16, 32, 4,
+                   lambda rng, B, ch, tab: [0, 1, 77, 300, 512, 65], True),
+    "D48": (48, torch.bfloat16, 6, 6, 2, 32, 32, 4,
+            lambda rng, B, ch, tab: [0, 1, 77, 300, 1024, 1023], True),
+    "D192": (192, torch.bfloat16, 6, 5, 2, 16, 32, 2,
+             lambda rng, B, ch, tab: [0, 1, 77, 300, 512, 65], True),
+    "group16": (128, torch.bfloat16, 8, 16, 2, 16, 64, 4,
+                lambda rng, B, ch, tab: rng.integers(256, 601, B), True),
+    "group16_chunk_edges": (128, torch.bfloat16, 8, 16, 2, 16, 128, 4,
+                            lambda rng, B, ch, tab: _edges(B, ch, tab),
+                            True),
+    "group12_D64": (64, torch.bfloat16, 6, 12, 2, 16, 32, 4,
+                    lambda rng, B, ch, tab: [0, 1, 77, 300, 512, 65], True),
+    "group32_D256": (256, torch.bfloat16, 3, 32, 1, 16, 16, 1,
+                     lambda rng, B, ch, tab: [0, 200, 256], True),
+    "fp32_D64_engine": (64, torch.float32, 8, 2, 2, 16, 64, 4,
+                        lambda rng, B, ch, tab: rng.integers(256, 601, B),
+                        True),
+    "fp32_D64_chunk_edges": (64, torch.float32, 8, 6, 2, 16, 128, 4,
+                             lambda rng, B, ch, tab: _edges(B, ch, tab),
+                             True),
+    "fp32_D128_group16": (128, torch.float32, 6, 16, 2, 16, 32, 4,
+                          lambda rng, B, ch, tab: [0, 1, 77, 300, 512, 65],
+                          True),
+    "fp32_D256_ctx0_past_table": (256, torch.float32, 4, 3, 2, 16, 7, 4,
+                                  lambda rng, B, ch, tab: [0, 10 ** 6,
+                                                           tab - 15, 200],
+                                  True),
+    "fp32_D16_one_split": (16, torch.float32, 500, 1, 2, 16, 8, 4,
+                           lambda rng, B, ch, tab: rng.integers(0, 129, B),
+                           False),
+}
+
+
+@pytest.mark.parametrize("name", list(DOMAIN_CASES))
+def test_paged_attention_split_kv_across_the_domain(cuda, name):
+    """Both kernels past D 128 bf16: D 112 (zamba2-7b's), 256 (gemma3-12b's)
+    and 64 (the reduced configs'), and 16, 48 and 192, groups of 12, 16
+    and 32 (head tiles of 8), and the fp32 kernel at D 16, 64, 128 and
+    256; at the engine's bucket, on chunk edges, ctx 0 and ctx past the
+    table, short rows over many splits, and one split where the rows fill
+    the card.  fp32 within 1e-5, bf16 within this file's gate."""
+    D, dtype, B, G, Hkv, bs, n_pages, ppcb, ctx_of, splits = \
+        DOMAIN_CASES[name]
+    n_splits, chunk, tab = _plan(B, Hkv, n_pages, bs, ppcb, D, dtype, G)
+    assert (n_splits > 1) == splits
+    rng = np.random.default_rng(len(name))
+    ctxs = np.asarray(list(ctx_of(rng, B, chunk, tab)), np.int32)
+    q, k, v, bt, ctx = _attention_case(rng, B, G * Hkv, Hkv, D, bs,
+                                       n_pages, ctxs)
+    qd, kd, vd = _to(cuda, q, k, v, dtype=dtype)
+    btd, ctxd = _to(cuda, bt, ctx, dtype=torch.int32)
+    before = pa.paged_attention.launches
+    out = pa.paged_attention(qd, kd, vd, btd, ctxd, D ** -0.5, ppcb)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches == before + 1
+    ref = pa.paged_attention_plain(qd, kd, vd, btd, ctxd, D ** -0.5, ppcb)
+    atol, rtol = DTYPE_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+
+
 @pytest.mark.parametrize("B,n_pages", [(4, 3), (8, 64)])
 def test_paged_attention_kernel_follows_the_tpu_index_rule(cuda, B, n_pages):
     """Table ids outside [0, nb) on a 6-block pool: -3 reads block 3, 9
@@ -214,6 +360,47 @@ def test_paged_attention_kernel_is_deterministic(cuda):
     assert torch.equal(a.view(torch.int16), b.view(torch.int16))
 
 
+@pytest.mark.parametrize("B,n_pages", [(4, 3), (8, 64)])
+def test_paged_attention_fp32_kernel_follows_the_tpu_index_rule(cuda, B,
+                                                               n_pages):
+    """The fp32 kernel at D 64 on a 6-block pool with table ids outside [0,
+    nb) (-3 reads block 3, 9 block 5, -9 block 0), a ctx-0 row (the
+    uniform mean of V over the padded table) and ctx past the table:
+    within 1e-5 of the plain version."""
+    rng = np.random.default_rng(B + 64)
+    nb, bs, Hq, Hkv, D = 6, 16, 8, 2, 64
+    q = rng.standard_normal((B, Hq, D)).astype(np.float32)
+    k = rng.standard_normal((nb, bs, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((nb, bs, Hkv, D)).astype(np.float32)
+    bt = rng.choice(np.array([-3, -9, 9, 2, -1, 0], np.int32), (B, n_pages))
+    ctx = rng.integers(0, n_pages * bs + 20, B).astype(np.int32)
+    ctx[0] = 0
+    qd, kd, vd = _to(cuda, q, k, v, dtype=torch.float32)
+    btd, ctxd = _to(cuda, bt, ctx, dtype=torch.int32)
+    out = pa.paged_attention(qd, kd, vd, btd, ctxd, D ** -0.5, 4)
+    ref = pa.paged_attention_plain(qd, kd, vd, btd, ctxd, D ** -0.5, 4)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("D,dtype,G", [(64, torch.float32, 6),
+                                       (256, torch.bfloat16, 2),
+                                       (128, torch.bfloat16, 16)],
+                         ids=["fp32_D64", "bf16_D256", "bf16_group16"])
+def test_paged_attention_kernels_are_deterministic(cuda, D, dtype, G):
+    """Two launches on the same inputs are bit-equal across the domain:
+    the warps and the splits merge in a fixed order, no float atomics."""
+    rng = np.random.default_rng(D + G)
+    ctxs = np.linspace(0, 2048, 32).astype(np.int32)
+    q, k, v, bt, ctx = _attention_case(rng, 32, G * 2, 2, D, 16, 128, ctxs)
+    args = (*_to(cuda, q, k, v, dtype=dtype),
+            *_to(cuda, bt, ctx, dtype=torch.int32))
+    assert _plan(32, 2, 128, 16, 4, D, dtype, G)[0] > 1
+    a = pa.paged_attention(*args, D ** -0.5, 4)
+    b = pa.paged_attention(*args, D ** -0.5, 4)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
 def _sass_kernels(name):
     """{kernel name: whether its SASS holds HMMA} of a built library."""
     import re
@@ -233,13 +420,19 @@ def _sass_kernels(name):
 
 
 def test_paged_attention_kernel_runs_on_the_tensor_cores(cuda):
-    """The built paged-attention library, disassembled: the split kernel
-    holds HMMA (tensor-core) instructions; the combine kernel is there."""
+    """The built paged-attention library, disassembled: one bf16 split
+    kernel per head_dim of the domain (16 to 256 by 16), each holding HMMA
+    (tensor-core) instructions; one fp32 split kernel per 32 of head_dim,
+    none holding HMMA (plain fp32 on the CUDA cores, so no TF32); a
+    combine per bf16 head_dim and one for fp32."""
     kernels = _sass_kernels("paged_attention")
     split = [n for n in kernels if "paged_attention_split_kernel" in n]
+    f32 = [n for n in kernels if "paged_attention_f32_split_kernel" in n]
     combine = [n for n in kernels if "paged_attention_combine_kernel" in n]
-    assert len(split) == 1 and len(combine) == 1, sorted(kernels)
-    assert kernels[split[0]]
+    assert (len(split), len(f32), len(combine)) == (16, 8, 17), \
+        sorted(kernels)
+    assert all(kernels[n] for n in split)
+    assert not any(kernels[n] for n in f32)
 
 
 @pytest.mark.parametrize("runs", [

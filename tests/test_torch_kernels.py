@@ -292,6 +292,25 @@ def test_paged_tolerance_fails_rounded_p_and_passes_split_p(seed):
     assert flips["split"] > 5e-4 and flips["split3"] < 5e-5
 
 
+# the CUDA kernels' domain, as (head_dim, dtype, GQA group): the served
+# bf16 D 128 (qwen2-1.5b's group of 6), the reduced configs' D 64,
+# zamba2-7b's 112, gemma3-12b's 256, a group of 16 (two head tiles) and
+# the fp32 kernel at D 64
+KERNELS = {"bf16_D128_g6": (128, torch.bfloat16, 6),
+           "bf16_D64_g2": (64, torch.bfloat16, 2),
+           "bf16_D112_g4": (112, torch.bfloat16, 4),
+           "bf16_D256_g2": (256, torch.bfloat16, 2),
+           "bf16_D128_g16": (128, torch.bfloat16, 16),
+           "fp32_D64_g4": (64, torch.float32, 4)}
+
+
+def _kernel_plan(kernel):
+    """split_plan's (resident, tiles) for a KERNELS entry."""
+    D, dtype, G = KERNELS[kernel]
+    return pa.ctas_per_sm(D, dtype), pa.head_tiles(G, 1)
+
+
+@pytest.mark.parametrize("kernel", list(KERNELS))
 @pytest.mark.parametrize("B,Hkv,n_pages,bs", [
     (8, 2, 64, 16),          # the engine's bucket
     (8, 2, 128, 16),
@@ -300,18 +319,21 @@ def test_paged_tolerance_fails_rounded_p_and_passes_split_p(seed):
     (3, 2, 5, 32),
     (2, 4, 3000, 16),        # past MAX_CHUNK_PAGES in one split
     (5, 2, 9, 48),           # 64 and bs share no power of two past 16
-    (200, 2, 64, 16),        # 400 CTAs fill 396 resident slots
+    (200, 2, 64, 16),        # 400 CTAs fill 396 resident slots at D 128
 ])
-def test_split_plan_tiles_the_padded_table(B, Hkv, n_pages, bs):
+def test_split_plan_tiles_the_padded_table(B, Hkv, n_pages, bs, kernel):
     """split_plan reads shapes only; its chunks are whole 64-token steps
     and whole pages, at most MAX_CHUNK_PAGES, tile the padded table from
-    token 0 with no gap or overlap, and every split starts inside it."""
+    token 0 with no gap or overlap, and every split starts inside it, at
+    every kernel's resident count and head tiles."""
     import inspect
     assert list(inspect.signature(pa.split_plan).parameters) == \
-        ["B", "Hkv", "n_tokens", "bs", "num_sms"]
+        ["B", "Hkv", "n_tokens", "bs", "num_sms", "resident", "tiles"]
+    resident, tiles = _kernel_plan(kernel)
     n_tokens = n_pages * bs
-    n_splits, chunk = pa.split_plan(B, Hkv, n_tokens, bs)
-    assert (n_splits, chunk) == pa.split_plan(B, Hkv, n_tokens, bs)
+    plan = dict(resident=resident, tiles=tiles)
+    n_splits, chunk = pa.split_plan(B, Hkv, n_tokens, bs, **plan)
+    assert (n_splits, chunk) == pa.split_plan(B, Hkv, n_tokens, bs, **plan)
     assert chunk % pa.STEP == 0 and chunk % bs == 0
     assert chunk // bs <= pa.MAX_CHUNK_PAGES
     spans = [(s * chunk, min((s + 1) * chunk, n_tokens))
@@ -319,7 +341,7 @@ def test_split_plan_tiles_the_padded_table(B, Hkv, n_pages, bs):
     assert spans[0][0] == 0 and spans[-1][1] == n_tokens
     assert all(a < e for a, e in spans)
     assert all(e == a2 for (_, e), (a2, _) in zip(spans, spans[1:]))
-    if B * Hkv >= pa.CTAS_PER_SM * pa.H100_SMS:
+    if B * Hkv * tiles >= resident * pa.H100_SMS:
         assert n_splits == 1
 
 
@@ -330,9 +352,65 @@ def test_split_plan_gives_one_split_where_the_rows_fill_the_card():
     assert pa.split_plan(8, 2, 1024, 16, num_sms=4) == (1, 1024)
     assert pa.split_plan(8, 2, 1024, 16) == (16, 64)
     assert pa.split_plan(32, 2, 2048, 16) == (11, 192)
+    # D 256 holds one CTA an SM: 132 slots, filled by 66 rows of 2 heads
+    assert pa.split_plan(66, 2, 2048, 16, resident=1) == (1, 2048)
+    assert pa.split_plan(65, 2, 2048, 16, resident=1)[0] > 1
+    # a group of 16 is two head tiles: a split's CTAs double
+    assert pa.split_plan(slots // 4, 2, 2048, 16, tiles=2) == (1, 2048)
+    assert pa.split_plan(slots // 4 - 1, 2, 2048, 16, tiles=2)[0] > 1
+    # the served D-128 bf16 launch keeps its plan
+    assert pa.split_plan(32, 2, 2048, 16, resident=pa.ctas_per_sm(
+        128, torch.bfloat16), tiles=pa.head_tiles(12, 2)) == (11, 192)
 
 
-def _split_kv_emulated(q, k, v, bt, ctx, scale, ppcb):
+def _cu_constants():
+    """The integer constants of csrc/paged_attention.cu's namespace."""
+    import re
+    from pathlib import Path
+    src = (Path(pa.__file__).resolve().parent.parent / "csrc"
+           / "paged_attention.cu").read_text()
+    return {k: int(v) for k, v in
+            re.findall(r"^constexpr int (k\w+) = (\d+);", src, re.M)}
+
+
+def test_resident_ctas_follow_the_ring_bytes():
+    """ctas_per_sm, which split_plan takes, is the SM's 228 KB of shared
+    memory over a CTA's (the bf16 ring, two stages of a 16-token K and V
+    sub-tile per warp, 512 bytes per element of a row of D rounded up to
+    64; a full chunk's table; the per-CTA reservation), capped where each
+    thread keeps 128 registers; its constants are the CUDA source's."""
+    cu = _cu_constants()
+    assert (cu["kSmemPerSm"], cu["kSmemPerCta"], cu["kMaxResident"],
+            cu["kMaxChunkPages"], cu["kMaxGroup"], cu["kWarps"],
+            cu["kStages"], cu["kSub"], cu["kMaxD"]) == \
+        (pa.SMEM_PER_SM, pa.SMEM_PER_CTA, pa.MAX_RESIDENT,
+         pa.MAX_CHUNK_PAGES, pa.MAX_GROUP, pa.WARPS, 2, 16,
+         pa.MAX_HEAD_DIM)
+    assert cu["kWarps"] * cu["kSub"] == pa.STEP
+    assert pa.MAX_RESIDENT * 128 * 128 == 65536
+    rings = {D: pa.smem_bytes(D, torch.bfloat16)
+             for D in range(16, pa.MAX_HEAD_DIM + 1, 16)}
+    assert (rings[64], rings[112], rings[128], rings[256]) == \
+        (32768, 65536, 65536, 131072)
+    assert all(rings[D] == 512 * (-(-D // 64) * 64) for D in rings)
+    got = {D: pa.ctas_per_sm(D, torch.bfloat16) for D in rings}
+    assert (got[16], got[64], got[112], got[128], got[192], got[256]) == \
+        (4, 4, 3, 3, 2, 1)
+    assert pa.CTAS_PER_SM == got[128] == 3
+    for D, ring in rings.items():
+        per_cta = ring + pa.MAX_CHUNK_PAGES * 4 + pa.SMEM_PER_CTA
+        assert got[D] * per_cta <= pa.SMEM_PER_SM
+        assert got[D] == pa.MAX_RESIDENT or \
+            (got[D] + 1) * per_cta > pa.SMEM_PER_SM
+    # the fp32 kernel: the tile's q and the merge buffer, 4 at every D
+    assert pa.smem_bytes(64, torch.float32) == 8 * 64 * 4 + 4 * 8 * 66 * 4
+    assert {pa.ctas_per_sm(D, torch.float32) for D in rings} == {4}
+    assert [pa.head_tiles(Hq, Hkv) for Hq, Hkv in
+            ((12, 2), (4, 4), (16, 2), (32, 2), (48, 2), (34, 2))] == \
+        [1, 1, 1, 2, 3, 3]
+
+
+def _split_kv_emulated(q, k, v, bt, ctx, scale, ppcb, resident=None):
     """The kernel's partition and merge in fp32 on the CPU: each split of
     ``split_plan`` walks its chunk of the padded table up to the row's
     walk (min(ctx, table), the whole table when ctx <= 0) with -1e30 at
@@ -343,7 +421,9 @@ def _split_kv_emulated(q, k, v, bt, ctx, scale, ppcb):
     nb, bs, Hkv, _ = k.shape
     npp = pa._padded_pages(bt.shape[1], ppcb)
     n_tab = npp * bs
-    n_splits, chunk = pa.split_plan(B, Hkv, n_tab, bs)
+    n_splits, chunk = pa.split_plan(
+        B, Hkv, n_tab, bs, resident=resident or pa.CTAS_PER_SM,
+        tiles=pa.head_tiles(Hq, Hkv))
     ids = bc._block_index(torch.nn.functional.pad(
         bt.long(), (0, npp - bt.shape[1])), nb)
     out = torch.empty(B, Hq, D)
@@ -375,33 +455,39 @@ def _split_kv_emulated(q, k, v, bt, ctx, scale, ppcb):
     return out
 
 
+@pytest.mark.parametrize("kernel", list(KERNELS))
 @pytest.mark.parametrize("n_pages,ppcb,ctxs", [
     (64, 4, [256, 600, 333, 417, 512, 289, 598, 260]),   # the engine's
     (64, 4, [64, 65, 128, 129, 0, 1024, 1025, 1]),        # chunk edges
     (7, 4, [0, 113, 200, 5]),         # ctx 0, the padding page, past it
-    (128, 2, [1, 2, 7, 16, 3, 9, 11, 15]),   # short rows, 32 splits
+    (128, 2, [1, 2, 7, 16, 3, 9, 11, 15]),   # short rows, many splits
 ])
 def test_split_kv_partition_and_merge_match_the_reference(n_pages, ppcb,
-                                                          ctxs):
-    """The split-KV decomposition the card's kernel computes, emulated in
-    fp32 (the splits of ``split_plan`` at the script's 132-SM card), held
-    to the reference's paged_attention in interpret mode: rows ending on
-    and one token past a chunk edge, ctx 0 (the uniform mean of V over the
-    padded table, from every split), ctx past the table, rows whose every
-    split but the first is empty, and table ids outside [0, nb)."""
-    B, Hq, Hkv, D, bs = len(ctxs), 12, 2, 64, 16
-    q, kp, vp, bt, _ = _attention_inputs(n_pages, B, Hq, Hkv, D, bs,
+                                                          ctxs, kernel):
+    """The split-KV decomposition the card's kernels compute, emulated in
+    fp32 (the splits of ``split_plan`` at the script's 132-SM card, at
+    each kernel's resident count and head tiles), held to the reference's
+    paged_attention in interpret mode at D 64, 112, 128 and 256, groups 2
+    to 16: rows ending on and one token past a chunk edge, ctx 0 (the
+    uniform mean of V over the padded table, from every split), ctx past
+    the table, rows whose every split but the first is empty, and table
+    ids outside [0, nb)."""
+    D, dtype, G = KERNELS[kernel]
+    B, Hkv, bs = len(ctxs), 2, 16
+    q, kp, vp, bt, _ = _attention_inputs(n_pages, B, G * Hkv, Hkv, D, bs,
                                          n_pages)
     nb = kp.shape[0]
     bt[1, 0], bt[2, -1], bt[3, 1 % n_pages] = -3, nb + 4, -nb - 2
     ctx = np.asarray(ctxs, np.int32)
+    resident, tiles = _kernel_plan(kernel)
     assert pa.split_plan(B, Hkv, pa._padded_pages(n_pages, ppcb) * bs,
-                         bs)[0] > 1
+                         bs, resident=resident, tiles=tiles)[0] > 1
     ref = jax_paged_attention(jnp.asarray(q), jnp.asarray(kp),
                               jnp.asarray(vp), jnp.asarray(bt),
                               jnp.asarray(ctx), D ** -0.5,
                               pages_per_compute_block=ppcb)
     out = _split_kv_emulated(*(torch.from_numpy(a) for a in
-                               (q, kp, vp, bt, ctx)), D ** -0.5, ppcb)
+                               (q, kp, vp, bt, ctx)), D ** -0.5, ppcb,
+                             resident)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5,
                                rtol=1e-5)
